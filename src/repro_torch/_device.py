@@ -1,0 +1,29 @@
+"""Explicit device resolution for the port's entry points.
+
+Every entry point takes ``device`` (default ``"cuda"``) and runs there.
+A CUDA device that is not present is an error, never a reason to carry on
+on the CPU: callers that want the CPU say ``device="cpu"``.
+"""
+from __future__ import annotations
+
+from typing import Union
+
+import numpy as np
+import torch
+
+
+def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
+    """``torch.device`` for ``device``; raises if it names a CUDA device
+    and this process has none."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(device)!r} requested but torch.cuda.is_available() "
+            f"is False; pass device='cpu' to run on the CPU")
+    return dev
+
+
+def to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host numpy array as a tensor on ``device`` (the host-to-device
+    copy a backend owns; on the CPU the tensor shares the array's memory)."""
+    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
