@@ -6,23 +6,33 @@
 Builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` into
 ``build/`` (one ``nvcc`` per source, all started together), holds each
 kernel against its plain PyTorch version and its ``ref.py`` oracle on the
-card, drives the port's main path — ``coverify()`` over the oracle /
-interpret / compiled backends for the systolic matmul and the
-flash-attention forward, through the congestion-arbitrated bridge — and
-regenerates the committed single-device golden trace and counter stream.
+card, and drives the port's two paths:
 
-Every earlier line of standard output is one JSON object; the last line is
+  * co-verification — ``coverify()`` over the oracle / interpret / compiled
+    backends for the systolic matmul and the flash-attention forward,
+    through the congestion-arbitrated bridge, then the committed
+    single-device golden trace and counter stream regenerated byte for byte;
+  * training — llama3.2-1b at full width (16 layers, seq 2048, batch 2,
+    bf16 compute, ``attn_impl="pallas"``): one loss + backward with the
+    kernels against the naive attention, then three ``Trainer`` steps with
+    checkpointing, counting the attention kernels' launches.
+
+Every line of standard output is one JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure (no CUDA device, a build or
-launch error, a tolerance miss, a non-EQUIVALENT report, a golden mismatch)
-ends the run with a non-zero exit code and no last line.
+launch error, a tolerance miss, a non-EQUIVALENT report, a golden mismatch,
+a non-finite loss, a wrong launch count) ends the run with a non-zero exit
+code and no last line.
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -33,8 +43,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch._tree import leaves, tree_map
+from repro_torch.configs import get_config, smoke
 from repro_torch.core import CongestionConfig, FireBridge, coverify
 from repro_torch.core.counters import counter_banks
+from repro_torch.data.synthetic import SyntheticLMDataset
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import kernel as FAK
 from repro_torch.kernels.flash_attention import ref as FAref
@@ -45,6 +58,11 @@ from repro_torch.kernels.systolic_matmul import kernel as MMK
 from repro_torch.kernels.systolic_matmul import ref as MMref
 from repro_torch.kernels.systolic_matmul.sweep import (matmul_backends,
                                                        matmul_firmware)
+from repro_torch.launch import steps as steps_lib
+from repro_torch.launch.steps import make_train_state, make_train_step
+from repro_torch.models.transformer import RunFlags, make_loss_fn
+from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
 # Published dense peaks of one H100 SXM (NVIDIA data sheet): the fp32 rate
 # outside the tensor cores bounds a true-fp32 product; bf16 operands could
@@ -142,8 +160,9 @@ MM_SHAPES = [
 MM_MAIN = 4          # index of the shape coverify_matmul runs
 
 # (B, H, KH, S, D, causal, window, dtype, bq=bk); five reference test rows,
-# three rows at the llama3.2-1b attention width, and the main-path shape of
-# coverify_flash (flash_firmware is MHA fp32).
+# three rows at the llama3.2-1b attention width, the main-path shape of
+# coverify_flash (flash_firmware is MHA fp32) and the shape train_llama
+# gives the kernel (the models call it with bq=bk=512).
 FA_SHAPES = [
     (2, 4, 2, 128, 16, True, 0, torch.float32, 32),
     (1, 4, 4, 64, 32, False, 0, torch.float32, 32),
@@ -154,8 +173,25 @@ FA_SHAPES = [
     (1, 32, 8, 2048, 64, True, 0, torch.bfloat16, 128),
     (1, 32, 8, 2048, 64, True, 512, torch.bfloat16, 128),
     (1, 32, 32, 2048, 64, True, 0, torch.float32, 128),
+    (2, 32, 8, 2048, 64, True, 0, torch.bfloat16, 512),
 ]
 FA_MAIN = 8
+FA_TRAIN = 9
+
+# Backward: the reference's gradient rows (SWEEP[:3] of
+# tests/test_kernels_flash.py), a GQA row with G=4 (a missing head sum shows
+# there) and the shape train_llama gives the kernels.
+BWD_SHAPES = [
+    (2, 4, 2, 128, 16, True, 0, torch.float32, 32),
+    (1, 4, 4, 64, 32, False, 0, torch.float32, 32),
+    (2, 8, 2, 128, 16, True, 48, torch.float32, 32),
+    (1, 8, 2, 256, 64, True, 0, torch.float32, 32),
+    (2, 32, 8, 2048, 64, True, 0, torch.bfloat16, 512),
+]
+BWD_MAIN = 4
+# the reference's gradient tolerance, times max(1, max|plain|); kernel,
+# plain version and autograd through the oracle take the same upcast inputs
+BWD_TOL = 5e-4
 
 
 def check_matmul(shape) -> dict:
@@ -264,12 +300,81 @@ def check_flash(shape) -> dict:
     return row
 
 
+def sdpa_backward(q, k, v, dout, causal: bool, window: int):
+    """The backward of one ``scaled_dot_product_attention`` call (dq, dk and
+    dv together) on the same inputs: a yardstick for B3 + B4, unused by the
+    port.  Returns a zero-argument callable."""
+    qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+    out = sdpa(qq, kk, vv, causal, window)()
+    return lambda: torch.autograd.grad(out, (qq, kk, vv), dout,
+                                       retain_graph=True)
+
+
+def check_flash_bwd(shape):
+    """B3 and B4 at one shape against their plain versions and against
+    autograd through the oracle.  ``delta`` comes from the oracle's fp32
+    output on the upcast inputs, which is what autograd sees."""
+    B, H, KH, S, D, causal, window, dt, blk = shape
+    rng = np.random.default_rng(B * 7919 + H * 101 + KH * 13 + S + D + 1)
+    mk = lambda h: torch.from_numpy(
+        rng.normal(size=(B, h, S, D)).astype(np.float32)).cuda().to(dt)
+    q, k, v, dout = mk(H), mk(KH), mk(KH), mk(H)
+    kw = dict(causal=causal, window=window, bq=blk, bk=blk)
+    _, lse = FAK.flash_fwd(q, k, v, **kw)
+    qf, kf, vf = (t.float().requires_grad_() for t in (q, k, v))
+    o = FAref.attention_ref(qf, kf, vf, causal=causal, window=window)
+    delta = (dout.float() * o.detach()).sum(-1)
+    dk, dv = FAK.flash_dkdv(q, k, v, dout, lse, delta, **kw)
+    dq = FAK.flash_dq(q, k, v, dout, lse, delta, **kw)
+    torch.cuda.synchronize()
+    p_dk, p_dv = FAK.flash_dkdv_plain(q, k, v, dout, lse, delta, **kw)
+    p_dq = FAK.flash_dq_plain(q, k, v, dout, lse, delta, **kw)
+    a_dq, a_dk, a_dv = torch.autograd.grad(o, (qf, kf, vf), dout.float())
+    del o, qf, kf, vf
+    big = S >= 1024
+    reps = 5 if big else 20
+    lib_ms = time_ms(sdpa_backward(q, k, v, dout, causal, window), reps)
+    pairs = live_pairs(S, S, causal, window) * B * H
+    es = q.element_size()
+    in_bytes = (2 * q.numel() + 2 * k.numel()) * es + 2 * lse.numel() * 4
+    base = {"shape": [B, H, KH, S, D], "causal": causal, "window": window,
+            "block": blk, "dtype": str(dt).split(".")[1],
+            "library_ms": lib_ms, "library": "sdpa backward (dq, dk, dv)"}
+    rows = []
+    for name, got, plain, auto, fn, pfn, flops, out_bytes in (
+            ("flash_dkdv", (dk, dv), (p_dk, p_dv), (a_dk, a_dv),
+             lambda: FAK.flash_dkdv(q, k, v, dout, lse, delta, **kw),
+             lambda: FAK.flash_dkdv_plain(q, k, v, dout, lse, delta, **kw),
+             8.0 * D * pairs, 2 * dk.numel() * 4),
+            ("flash_dq", (dq,), (p_dq,), (a_dq,),
+             lambda: FAK.flash_dq(q, k, v, dout, lse, delta, **kw),
+             lambda: FAK.flash_dq_plain(q, k, v, dout, lse, delta, **kw),
+             6.0 * D * pairs, dq.numel() * 4)):
+        tol = BWD_TOL * max(1.0, max(float(t.abs().max()) for t in plain))
+        row = dict(base, name=name, tol=tol,
+                   max_abs_err=max(max_err(g, t) for g, t in zip(got, plain)),
+                   max_abs_err_ref=max(max_err(g, t)
+                                       for g, t in zip(got, auto)),
+                   kernel_ms=time_ms(fn, reps),
+                   plain_ms=time_ms(pfn, 3 if big else reps))
+        row.update(bound(flops, in_bytes + out_bytes, row["dtype"]))
+        if not all(torch.isfinite(g).all() for g in got):
+            fail(f"{name} {row['shape']}: non-finite output")
+        if not (row["max_abs_err"] < tol and row["max_abs_err_ref"] < tol):
+            fail(f"{name} {row}: outside tolerance")
+        rows.append(row)
+    return rows
+
+
 def phase_kernels():
     mm_rows = [check_matmul(s) for s in MM_SHAPES]
     fa_rows = [check_flash(s) for s in FA_SHAPES]
+    bwd = [check_flash_bwd(s) for s in BWD_SHAPES]
+    dkdv_rows = [r[0] for r in bwd]
+    dq_rows = [r[1] for r in bwd]
     emit({"phase": "kernel_checks", "systolic_matmul": mm_rows,
-          "flash_fwd": fa_rows})
-    return mm_rows, fa_rows
+          "flash_fwd": fa_rows, "flash_dkdv": dkdv_rows, "flash_dq": dq_rows})
+    return mm_rows, fa_rows, dkdv_rows, dq_rows
 
 
 # -------------------------------------------------------------- phases 4, 5
@@ -392,6 +497,7 @@ def phase_coverify_matmul(card: str, mm_rows) -> int:
 
 
 def phase_coverify_flash(card: str, fa_rows) -> int:
+    FAK.launches = 0
     cfg = FA_MAIN_CFG
     table = flash_backends(bq=cfg["bq"], bk=cfg["bk"], causal=True,
                            device="cuda")
@@ -432,14 +538,243 @@ def phase_golden() -> None:
     emit(out)
 
 
+# ------------------------------------------------------------------ phase 7
+LLAMA = dict(arch="llama3.2-1b", seq_len=2048, global_batch=2, steps=3,
+             seed=0)
+# pallas vs naive on the same weights and batch, bf16 compute: bf16 keeps 8
+# significant bits (rounding 2^-9 ~ 2e-3 relative) and the two routes round
+# at different places (naive rounds p to bf16 before p.v, the kernels keep
+# p in fp32), so each layer's output differs by O(2^-8) relative; the mean
+# loss over 4096 tokens averages that out, the gradient norm less so.
+LOSS_RTOL, GNORM_RTOL = 5e-3, 5e-2
+# smoke-size step on the card vs on the CPU (plain versions), fp32 compute:
+# the same arithmetic in another summation order
+SMOKE_RTOL = 1e-4
+
+
+def smoke_step_parity() -> dict:
+    """One train step at smoke(llama3.2-1b) size, fp32 compute, pallas
+    attention: on the card (kernels) against the CPU (plain versions), from
+    the same initial state and batch."""
+    cfg = smoke(get_config(LLAMA["arch"]))
+    flags = RunFlags(attn_impl="pallas", compute_dtype="float32")
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=3)
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    cpu_state = make_train_state(cfg, gen)
+    gpu_state = tree_map(lambda t: t.detach().cuda().requires_grad_(
+        t.requires_grad), cpu_state)
+    before = tree_map(lambda t: t.detach().clone(), cpu_state["params"])
+    b = SyntheticLMDataset(cfg.vocab_size, 128, 2, seed=1).batch(0)
+    out = {}
+    for name, st, dev in (("cpu", cpu_state, "cpu"), ("cuda", gpu_state, "cuda")):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        st, m = make_train_step(cfg, flags, None, opt)(st, batch)
+        out[name] = (st, {k: float(v) for k, v in m.items()})
+    (cs, cm), (gs, gm) = out["cpu"], out["cuda"]
+    # AdamW's first update is lr * g / (|g| + eps) per element, which turns a
+    # last-bit difference of a gradient near eps into a visible one: each
+    # parameter whose gradient is above 100 * eps (the CPU's first moment is
+    # (1 - b1) g) is held to 1e-3 * lr, the whole update to 1e-2 of its norm
+    lr, sure_err, num, den = cm["lr"], 0.0, 0.0, 0.0
+    for p0, pc, pg, m in zip(leaves(before), leaves(cs["params"]),
+                             leaves(gs["params"]), leaves(cs["m"])):
+        pc, pg = pc.detach(), pg.detach().cpu()
+        sure = m.abs() / (1 - opt.b1) > 100 * opt.eps
+        if sure.any():
+            sure_err = max(sure_err, float((pg - pc).abs()[sure].max()))
+        num += float(((pg - p0) - (pc - p0)).square().sum())
+        den += float((pc - p0).square().sum())
+    row = {"config": "smoke(llama3.2-1b)", "seq_len": 128, "batch": 2,
+           "cpu": cm, "cuda": gm, "rtol": SMOKE_RTOL,
+           "params_max_abs_err_over_lr": sure_err / lr,
+           "update_rel_err": (num / den) ** 0.5}
+    for key in ("loss", "grad_norm"):
+        if abs(gm[key] - cm[key]) > SMOKE_RTOL * abs(cm[key]):
+            fail(f"smoke step on the card vs the CPU: {row}")
+    if sure_err > 1e-3 * lr or num > 1e-4 * den:
+        fail(f"smoke step on the card vs the CPU, parameters: {row}")
+    return row
+
+
+class EventTimer:
+    """CUDA events around every call of some functions of a module while
+    the timer is active (the module attributes are wrapped, so callers that
+    look them up at call time — ``ops.py`` for the attention kernels,
+    ``launch/steps.py`` for the optimizer — are timed)."""
+
+    def __init__(self, module, names):
+        self.module, self.names = module, names
+
+    def __enter__(self):
+        self.events = {n: [] for n in self.names}
+        self.orig = {n: getattr(self.module, n) for n in self.names}
+        for n in self.names:
+            setattr(self.module, n, self._wrap(n, self.orig[n]))
+        return self
+
+    def _wrap(self, name, fn):
+        def run(*a, **k):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            out = fn(*a, **k)
+            t1.record()
+            self.events[name].append((t0, t1))
+            return out
+        return run
+
+    def __exit__(self, *exc):
+        for n in self.names:
+            setattr(self.module, n, self.orig[n])
+
+    def ms(self) -> dict:
+        torch.cuda.synchronize()
+        return {n: sum(a.elapsed_time(b) for a, b in ev)
+                for n, ev in self.events.items()}
+
+
+def phase_train_llama(card: str) -> dict:
+    cfg = get_config(LLAMA["arch"])
+    L = cfg.n_layers
+    flags = RunFlags(attn_impl="pallas", microbatches=1)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=20, total_steps=LLAMA["steps"])
+    dev = torch.device("cuda")
+    parity = smoke_step_parity()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(LLAMA["seed"])
+    state = make_train_state(cfg, gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in leaves(state["params"]))
+    data = SyntheticLMDataset(cfg.vocab_size, LLAMA["seq_len"],
+                              LLAMA["global_batch"], seed=LLAMA["seed"])
+    b0 = {k: torch.from_numpy(v).to(dev) for k, v in data.batch(0).items()}
+
+    # 1. one loss + backward with the kernels and with the naive attention
+    routes = {}
+    for impl in ("pallas", "naive"):
+        loss_fn = make_loss_fn(cfg, dataclasses.replace(flags, attn_impl=impl))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, _ = loss_fn(state["params"], b0)
+        grads = torch.autograd.grad(loss, leaves(state["params"]))
+        gnorm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+        routes[impl] = {"loss": float(loss.detach()), "grad_norm": float(gnorm),
+                        "seconds": time.perf_counter() - t}
+        del loss, grads, gnorm
+    pl, nv = routes["pallas"], routes["naive"]
+    if not all(np.isfinite([r["loss"], r["grad_norm"]]).all()
+               for r in routes.values()):
+        fail(f"train_llama: non-finite loss or gradient norm {routes}")
+    if abs(pl["loss"] - nv["loss"]) > LOSS_RTOL * abs(nv["loss"]) or \
+            abs(pl["grad_norm"] - nv["grad_norm"]) > GNORM_RTOL * nv["grad_norm"]:
+        fail(f"train_llama: pallas and naive attention disagree {routes}")
+
+    # 2. the Trainer, three steps, checkpoint at the end
+    ckpt_dir = Path(tempfile.mkdtemp(prefix="ckpt_", dir=_build.BUILD_DIR))
+    try:
+        trainer = Trainer(cfg, TrainerConfig(
+            seq_len=LLAMA["seq_len"], global_batch=LLAMA["global_batch"],
+            steps=LLAMA["steps"], ckpt_dir=str(ckpt_dir), seed=LLAMA["seed"]),
+            flags, opt, device=dev)
+        ck = {"snapshot_s": 0.0, "write_s": 0.0}
+
+        def timed(key, fn):
+            def run(*a, **k):
+                t = time.perf_counter()
+                out = fn(*a, **k)
+                ck[key] += time.perf_counter() - t
+                return out
+            return run
+        trainer.ckpt.save = timed("snapshot_s", trainer.ckpt.save)
+        trainer.ckpt._write = timed("write_s", trainer.ckpt._write)
+        torch.cuda.reset_peak_memory_stats()
+        FAK.launches = FAK.dkdv_launches = FAK.dq_launches = 0
+        t = time.perf_counter()
+        state, step = trainer.train(state=state)
+        train_s = time.perf_counter() - t
+        launches = {"flash_fwd": FAK.launches, "flash_dkdv": FAK.dkdv_launches,
+                    "flash_dq": FAK.dq_launches}
+        peak = torch.cuda.max_memory_allocated()
+        ck_files = [f for f in ckpt_dir.rglob("*") if f.is_file()]
+        ck["bytes"] = sum(f.stat().st_size for f in ck_files)
+        ck["steps_on_disk"] = trainer.ckpt.list_steps()
+        meta = json.loads((ckpt_dir / f"step_{step:08d}" / "meta.json")
+                          .read_text())
+        ck["leaves"] = len(meta["leaves"])
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    log = trainer.metrics_log
+    want = {"flash_fwd": 2 * L * LLAMA["steps"],
+            "flash_dkdv": L * LLAMA["steps"], "flash_dq": L * LLAMA["steps"]}
+    if launches != want:
+        fail(f"train_llama: launches {launches}, expected {want} "
+             f"(2L / L / L per step, L={L})")
+    if step != LLAMA["steps"] or len(log) != LLAMA["steps"] or \
+            not all(np.isfinite(r["loss"]) for r in log):
+        fail(f"train_llama: {step} steps, log {log}")
+    csr = {n: trainer.csr.hw_get(n) for n in ("STATUS", "STEP", "RESTARTS")}
+    if csr["STATUS"] != 2 or csr["STEP"] != LLAMA["steps"] - 1:
+        fail(f"train_llama: CSR {csr}")
+
+    # 3. where one more step's time goes: the attention kernels (events
+    # around every launch) and the optimizer (events around the update)
+    # against the whole step (events around it)
+    step_fn = make_train_step(cfg, flags, None, opt)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in data.batch(LLAMA["steps"]).items()}
+    torch.cuda.synchronize()
+    with EventTimer(FAK, ("flash_fwd", "flash_dkdv", "flash_dq")) as attn, \
+            EventTimer(steps_lib, ("adamw_update",)) as optim:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, m = step_fn(state, batch)
+        e1.record()
+        attn_ms, optim_ms = attn.ms(), optim.ms()["adamw_update"]
+    step_ms = e0.elapsed_time(e1)
+    if not np.isfinite(float(m["loss"])):
+        fail(f"train_llama: non-finite loss in the timed step {m}")
+    split = {"step_ms": step_ms, "attention_kernels_ms": attn_ms,
+             "attention_share": sum(attn_ms.values()) / step_ms,
+             "optimizer_ms": optim_ms,
+             "rest_ms": step_ms - sum(attn_ms.values()) - optim_ms}
+    del state
+    torch.cuda.empty_cache()
+    row = {"phase": "train_llama", "card": card, **LLAMA,
+           "config": {"n_layers": L, "d_model": cfg.d_model,
+                      "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+                      "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+                      "vocab_size": cfg.vocab_size, "params": n_params},
+           "flags": dataclasses.asdict(flags), "reduced": [],
+           "smoke_step_parity": parity, "init_s": init_s,
+           "first_batch": routes, "tol": {"loss_rtol": LOSS_RTOL,
+                                          "grad_norm_rtol": GNORM_RTOL},
+           "steps_log": log, "train_s": train_s, "csr": csr,
+           "launches": launches, "launches_per_step": {
+               k: v // LLAMA["steps"] for k, v in launches.items()},
+           "max_memory_allocated": peak, "checkpoint": ck,
+           "timed_step": {**split, "loss": float(m["loss"])}}
+    emit(row)
+    return launches
+
+
 # --------------------------------------------------------------------- main
 def kernel_entry(name, source, replaces, main_row, rows, launches) -> dict:
+    """``launches`` maps each main path that runs the kernel to its count
+    there; the entry's ``launches`` is their sum."""
     return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
+            "replaces": replaces, "launches": sum(launches.values()),
+            "launches_by_path": launches,
             "max_abs_err": main_row["max_abs_err"],
             "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"], "tol": main_row["tol"],
+            **({"library": main_row["library"]} if "library" in main_row
+               else {}),
             "peak": main_row["peak"],
             "main_path_shape": {k: main_row[k] for k in main_row
                                 if k in ("shape", "tile", "block", "dtype",
@@ -457,26 +792,38 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     card = phase_env()
     phase_build()
-    mm_rows, fa_rows = phase_kernels()
+    mm_rows, fa_rows, dkdv_rows, dq_rows = phase_kernels()
     mm_launches = phase_coverify_matmul(card, mm_rows)
     fa_launches = phase_coverify_flash(card, fa_rows)
     phase_golden()
-    if mm_launches < 1 or fa_launches < 1:
+    train = phase_train_llama(card)
+    if mm_launches < 1 or fa_launches < 1 or min(train.values()) < 1:
         fail(f"main path missed a kernel: matmul={mm_launches} "
-             f"flash={fa_launches}")
+             f"flash={fa_launches} train={train}")
+    src = "src/repro_torch/kernels/csrc/"
+    ref = "src/repro/kernels/"
     emit({"kernels": [
-        kernel_entry("systolic_matmul",
-                     "src/repro_torch/kernels/csrc/systolic_matmul.cu",
-                     "src/repro/kernels/systolic_matmul/kernel.py:52",
-                     mm_rows[MM_MAIN], mm_rows, mm_launches),
-        kernel_entry("flash_fwd",
-                     "src/repro_torch/kernels/csrc/flash_fwd.cu",
-                     "src/repro/kernels/flash_attention/kernel.py:109",
-                     fa_rows[FA_MAIN], fa_rows, fa_launches),
+        kernel_entry("systolic_matmul", src + "systolic_matmul.cu",
+                     ref + "systolic_matmul/kernel.py:52",
+                     mm_rows[MM_MAIN], mm_rows,
+                     {"coverify_matmul": mm_launches}),
+        kernel_entry("flash_fwd", src + "flash_fwd.cu",
+                     ref + "flash_attention/kernel.py:109",
+                     fa_rows[FA_MAIN], fa_rows,
+                     {"coverify_flash": fa_launches,
+                      "train_llama": train["flash_fwd"]}),
+        kernel_entry("flash_dkdv", src + "flash_bwd.cu",
+                     ref + "flash_attention/kernel.py:186",
+                     dkdv_rows[BWD_MAIN], dkdv_rows,
+                     {"train_llama": train["flash_dkdv"]}),
+        kernel_entry("flash_dq", src + "flash_bwd.cu",
+                     ref + "flash_attention/kernel.py:256",
+                     dq_rows[BWD_MAIN], dq_rows,
+                     {"train_llama": train["flash_dq"]}),
     ]})
     emit({"phase": "done", "card": card,
           "seconds": time.perf_counter() - t_start})
-    print(card, flush=True)
+    emit({"nvidia_smi": card})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -6,7 +6,8 @@ on the CPU: callers that want the CPU say ``device="cpu"``.
 """
 from __future__ import annotations
 
-from typing import Union
+import contextlib
+from typing import Iterator, Union
 
 import numpy as np
 import torch
@@ -27,3 +28,17 @@ def to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host numpy array as a tensor on ``device`` (the host-to-device
     copy a backend owns; on the CPU the tensor shares the array's memory)."""
     return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+
+@contextlib.contextmanager
+def true_fp32() -> Iterator[None]:
+    """Float32 matmuls on the card without TF32 inside the body; the
+    caller's ``torch.backends.cuda.matmul.allow_tf32`` is restored on exit,
+    so a plain version or oracle never changes the process-wide switch.
+    Usable as a decorator."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

@@ -1,6 +1,6 @@
 """State carried across from the reference package into the port.
 
-Both functions take only numpy arrays and plain Python objects: they are
+Every function takes only numpy arrays and plain Python objects: it is
 handed what the reference produced, never the reference package itself.
 """
 from __future__ import annotations
@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch._tree import tree_map
 from repro_torch.core.transactions import Transaction
 
 _TX_FIELDS = ("time", "engine", "kind", "addr", "nbytes", "tag", "stall",
@@ -83,3 +84,18 @@ def params_from_reference(tree: Any,
         return torch.from_numpy(np.array(node)).to(dev)     # copies
 
     return walk(tree)
+
+
+def train_state_from_reference(state: Dict[str, Any],
+                               device: Union[str, torch.device] = "cuda"
+                               ) -> Dict[str, Any]:
+    """The reference's ``make_train_state`` tree (``params``, ``m``, ``v``,
+    ``step``) as numpy arrays -> the port's train state, leaf for leaf on
+    ``device``: parameters as leaf tensors that require a gradient, moments
+    as they are, ``step`` as an int32 scalar tensor."""
+    out = params_from_reference(
+        {k: state[k] for k in ("params", "m", "v")}, device)
+    out["params"] = tree_map(lambda p: p.requires_grad_(), out["params"])
+    out["step"] = torch.tensor(int(np.asarray(state["step"])),
+                               dtype=torch.int32, device=resolve_device(device))
+    return out

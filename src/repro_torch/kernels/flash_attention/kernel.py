@@ -1,18 +1,20 @@
-"""Flash-attention forward (online softmax) — hand-written CUDA kernel
-(``csrc/flash_fwd.cu``) with its plain PyTorch version.
+"""Flash attention — hand-written CUDA kernels for the forward
+(``csrc/flash_fwd.cu``: online softmax) and the backward
+(``csrc/flash_bwd.cu``: dk/dv and dq), each with its plain PyTorch version.
 
 Layout: (B, H, S, D).  GQA is handled by index (kv head ``h // G``); no KV
 repeat is ever materialised.  Causal / sliding-window tiles that are fully
 masked are skipped (``_tile_live``), masked entries of a live tile are set
-to ``NEG`` before the running max and zeroed again after the exponential
-(``_tile_mask``), ``l`` is clamped at 1e-30 and ``lse = m + log(l)``.
+to ``NEG`` before the exponential and zeroed again after it
+(``_tile_mask``).  The forward clamps ``l`` at 1e-30 and returns
+``lse = m + log(l)``; the backward recomputes ``p = exp(s - lse)`` from it
+and takes ``delta = sum(dout * out)`` from the caller.
 
-``flash_fwd`` launches the kernel for CUDA tensors (or raises) and takes
-``flash_fwd_plain`` only for tensors that lie on the CPU.  ``bq/bk`` keep
-the reference's clamping and divisibility contract, since they define the
-modeled burst list (``ops.transactions``); the CUDA kernel uses its own
-tile, which changes the result only by fp32 rounding.  The backward
-kernels (dk/dv and dq) are not ported yet.
+Each wrapper launches its kernel for CUDA tensors (or raises) and takes the
+plain version only for tensors that lie on the CPU.  ``bq/bk`` keep the
+reference's clamping and divisibility contract, since they define the
+modeled burst list (``ops.transactions``); the CUDA kernels use their own
+tile, which changes the result only by fp32 rounding.
 """
 from __future__ import annotations
 
@@ -22,15 +24,19 @@ from typing import Tuple
 
 import torch
 
+from repro_torch._device import true_fp32
 from repro_torch.kernels import _build
 
 NEG = -1.0e30
 _DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (16, 32, 64, 128)
 
-# number of CUDA kernel launches made by ``flash_fwd`` (plain integer; a
-# caller that wants a per-run count sets it to 0 first)
+# numbers of CUDA kernel launches made by ``flash_fwd``, ``flash_dkdv`` and
+# ``flash_dq`` (plain integers; a caller that wants a per-run count sets
+# them to 0 first)
 launches = 0
+dkdv_launches = 0
+dq_launches = 0
 
 
 def _tile_mask(i: int, j: int, bq: int, bk: int, causal: bool, window: int,
@@ -73,6 +79,7 @@ def _shapes(q, k, v, bq: int, bk: int):
     return B, H, KH, Sq, Skv, D, bq, bk
 
 
+@true_fp32()
 def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, window: int = 0, bq: int = 512,
                     bk: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -80,7 +87,6 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sweep over the live kv blocks carrying ``m``, ``l`` and ``acc`` in
     fp32, batched over (B, KH, G).  Returns ``(out, lse)``."""
     B, H, KH, Sq, Skv, D, bq, bk = _shapes(q, k, v, bq, bk)
-    torch.backends.cuda.matmul.allow_tf32 = False
     G = H // KH
     scale = 1.0 / math.sqrt(D)
     dev = q.device
@@ -115,13 +121,146 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, H, Sq, D).to(q.dtype), lse.reshape(B, H, Sq)
 
 
-def _fn():
-    fn = _build.load("flash_fwd").flash_fwd
+def _plain_bwd_inputs(q, k, v, dout, lse, delta):
+    """Upcast operands grouped as (B, KH, G, S, ...) for the plain
+    backward versions."""
+    B, H, Sq, D = q.shape
+    KH = k.shape[1]
+    G = H // KH
+    return (q.reshape(B, KH, G, Sq, D).float(), k.float(), v.float(),
+            dout.reshape(B, KH, G, Sq, D).float(),
+            lse.reshape(B, KH, G, Sq).float(),
+            delta.reshape(B, KH, G, Sq).float())
+
+
+def _probs_and_ds(qi, kj, vj, doi, li, di, mask, scale):
+    """Recomputed ``p`` and ``ds`` of one (q block, kv block) tile,
+    batched over (B, KH, G) — the common body of ``_dkdv_kernel`` and
+    ``_dq_kernel``."""
+    s = torch.einsum("bkgqd,bksd->bkgqs", qi, kj) * scale
+    p = torch.exp(torch.where(mask, s, torch.full_like(s, NEG))
+                  - li[..., None])
+    p = torch.where(mask, p, torch.zeros_like(p))
+    dp = torch.einsum("bkgqd,bksd->bkgqs", doi, vj)
+    return p, p * (dp - di[..., None]) * scale
+
+
+@true_fp32()
+def flash_dkdv_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     dout: torch.Tensor, lse: torch.Tensor,
+                     delta: torch.Tensor, *, causal: bool, window: int = 0,
+                     bq: int = 512, bk: int = 512
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dk/dv kernel's arithmetic in plain tensor ops: for every kv block
+    a sweep over the live q blocks of all G query heads of its kv head,
+    with dk and dv carried in fp32.  Returns fp32 ``(dk, dv)`` of shape
+    (B, KH, Skv, D)."""
+    B, H, KH, Sq, Skv, D, bq, bk = _shapes(q, k, v, bq, bk)
+    scale = 1.0 / math.sqrt(D)
+    qg, kf, vf, dog, lg, dg = _plain_bwd_inputs(q, k, v, dout, lse, delta)
+    dk = torch.zeros((B, KH, Skv, D), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for j in range(Skv // bk):
+        kj = kf[:, :, j * bk:(j + 1) * bk]
+        vj = vf[:, :, j * bk:(j + 1) * bk]
+        for i in range(Sq // bq):
+            if not _tile_live(i, j, bq, bk, causal, window):
+                continue
+            rows = slice(i * bq, (i + 1) * bq)
+            mask = _tile_mask(i, j, bq, bk, causal, window, q.device)
+            p, ds = _probs_and_ds(qg[:, :, :, rows], kj, vj,
+                                  dog[:, :, :, rows], lg[..., rows],
+                                  dg[..., rows], mask, scale)
+            dv[:, :, j * bk:(j + 1) * bk] += torch.einsum(
+                "bkgqs,bkgqd->bksd", p, dog[:, :, :, rows])
+            dk[:, :, j * bk:(j + 1) * bk] += torch.einsum(
+                "bkgqs,bkgqd->bksd", ds, qg[:, :, :, rows])
+    return dk, dv
+
+
+@true_fp32()
+def flash_dq_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   dout: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                   *, causal: bool, window: int = 0, bq: int = 512,
+                   bk: int = 512) -> torch.Tensor:
+    """The dq kernel's arithmetic in plain tensor ops: for every q block a
+    sweep over the live kv blocks with dq carried in fp32.  Returns fp32
+    ``dq`` of shape (B, H, Sq, D)."""
+    B, H, KH, Sq, Skv, D, bq, bk = _shapes(q, k, v, bq, bk)
+    scale = 1.0 / math.sqrt(D)
+    qg, kf, vf, dog, lg, dg = _plain_bwd_inputs(q, k, v, dout, lse, delta)
+    dq = torch.zeros_like(qg)
+    for i in range(Sq // bq):
+        rows = slice(i * bq, (i + 1) * bq)
+        for j in range(Skv // bk):
+            if not _tile_live(i, j, bq, bk, causal, window):
+                continue
+            kj = kf[:, :, j * bk:(j + 1) * bk]
+            mask = _tile_mask(i, j, bq, bk, causal, window, q.device)
+            _, ds = _probs_and_ds(qg[:, :, :, rows], kj,
+                                  vf[:, :, j * bk:(j + 1) * bk],
+                                  dog[:, :, :, rows], lg[..., rows],
+                                  dg[..., rows], mask, scale)
+            dq[:, :, :, rows] += torch.einsum("bkgqs,bksd->bkgqd", ds, kj)
+    return dq.reshape(B, H, Sq, D)
+
+
+_ARGTYPES = {
+    # pointers ..., B, H, KH, Sq, Skv, D, causal, window, scale, is_bf16, stream
+    "flash_fwd": [ctypes.c_void_p] * 5,
+    "flash_dkdv": [ctypes.c_void_p] * 8,
+    "flash_dq": [ctypes.c_void_p] * 7,
+}
+_LIB = {"flash_fwd": "flash_fwd", "flash_dkdv": "flash_bwd",
+        "flash_dq": "flash_bwd"}
+
+
+def _fn(name: str):
+    fn = getattr(_build.load(_LIB[name]), name)
     if not fn.argtypes:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+        fn.argtypes = (_ARGTYPES[name] + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _on_cpu(name: str, *ts: torch.Tensor) -> bool:
+    """True for CPU tensors (plain version); raises for a device the
+    kernels do not run on, or for operands on different devices."""
+    dev = ts[0].device
+    if any(t.device != dev for t in ts):
+        raise ValueError(f"{name}: operands on different devices")
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, not {dev}")
+    return False
+
+
+def _check_kernel_operands(name: str, D: int, window: int, *ts: torch.Tensor
+                           ) -> None:
+    """What every attention kernel refuses: q/k/v(/dout) of mixed or other
+    types, head dims it is not built for, a negative window, strided
+    tensors."""
+    if len({t.dtype for t in ts}) != 1 or ts[0].dtype not in _DTYPES:
+        raise TypeError(f"{name} kernel takes float32 or bfloat16 q/k/v of "
+                        f"one type, got {[t.dtype for t in ts]}")
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"kernel is built for head dims {_HEAD_DIMS}, got {D}")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("kernel takes contiguous (B,H,S,D) tensors")
+
+
+def _launch(name: str, ptrs, B, H, KH, Sq, Skv, D, causal, window, bf16,
+            device) -> None:
+    with torch.cuda.device(device):
+        err = _fn(name)(*ptrs, B, H, KH, Sq, Skv, D, int(bool(causal)),
+                        int(window), 1.0 / math.sqrt(D), int(bf16),
+                        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch refused: CUDA error {err}")
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -132,32 +271,83 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     CPU tensors through ``flash_fwd_plain``."""
     global launches
     B, H, KH, Sq, Skv, D, bq, bk = _shapes(q, k, v, bq, bk)
-    if not (q.device == k.device == v.device):
-        raise ValueError("q, k, v on different devices")
-    if q.device.type == "cpu":
+    if _on_cpu("flash_fwd", q, k, v):
         return flash_fwd_plain(q, k, v, causal=causal, window=window, bq=bq,
                                bk=bk)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_fwd runs on cuda or cpu tensors, not {q.device}")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
-        raise TypeError(f"kernel takes float32 or bfloat16 q/k/v of one type, "
-                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"kernel is built for head dims {_HEAD_DIMS}, got {D}")
-    if window < 0:
-        raise ValueError(f"window must be >= 0, got {window}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("kernel takes contiguous (B,H,S,D) tensors")
-    fn = _fn()
+    _check_kernel_operands("flash_fwd", D, window, q, k, v)
     with torch.cuda.device(q.device):
         out = torch.empty_like(q)
         lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 lse.data_ptr(), B, H, KH, Sq, Skv, D, int(bool(causal)),
-                 int(window), 1.0 / math.sqrt(D),
-                 int(q.dtype == torch.bfloat16),
-                 torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_fwd launch refused: CUDA error {err}")
+    _launch("flash_fwd", (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          out.data_ptr(), lse.data_ptr()),
+            B, H, KH, Sq, Skv, D, causal, window, q.dtype == torch.bfloat16,
+            q.device)
     launches += 1
     return out, lse
+
+
+def _bwd_operands(name, q, k, v, dout, lse, delta, window, bq, bk):
+    B, H, KH, Sq, Skv, D, bq, bk = _shapes(q, k, v, bq, bk)
+    if dout.shape != q.shape or lse.shape != (B, H, Sq) \
+            or delta.shape != (B, H, Sq):
+        raise ValueError(f"{name}: dout must be shaped like q {tuple(q.shape)} "
+                         f"and lse/delta (B,H,Sq), got {tuple(dout.shape)}, "
+                         f"{tuple(lse.shape)}, {tuple(delta.shape)}")
+    cpu = _on_cpu(name, q, k, v, dout, lse, delta)
+    if not cpu:
+        _check_kernel_operands(name, D, window, q, k, v, dout)
+        if lse.dtype != torch.float32 or delta.dtype != torch.float32 \
+                or not (lse.is_contiguous() and delta.is_contiguous()):
+            raise TypeError(f"{name}: lse and delta must be contiguous "
+                            f"float32, got {lse.dtype}, {delta.dtype}")
+    return cpu, (B, H, KH, Sq, Skv, D, bq, bk)
+
+
+def flash_dkdv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               dout: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor, *,
+               causal: bool, window: int = 0, bq: int = 512, bk: int = 512
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q/dout (B,H,Sq,D); k/v (B,KH,Skv,D); lse/delta (B,H,Sq) fp32 ->
+    fp32 (dk, dv) of shape (B,KH,Skv,D), summed over the G query heads of
+    each kv head.  CUDA tensors go through the hand-written kernel; CPU
+    tensors through ``flash_dkdv_plain``."""
+    global dkdv_launches
+    cpu, (B, H, KH, Sq, Skv, D, bq, bk) = _bwd_operands(
+        "flash_dkdv", q, k, v, dout, lse, delta, window, bq, bk)
+    if cpu:
+        return flash_dkdv_plain(q, k, v, dout, lse, delta, causal=causal,
+                                window=window, bq=bq, bk=bk)
+    with torch.cuda.device(q.device):
+        dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
+        dv = torch.empty_like(dk)
+    _launch("flash_dkdv", (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                           dk.data_ptr(), dv.data_ptr()),
+            B, H, KH, Sq, Skv, D, causal, window, q.dtype == torch.bfloat16,
+            q.device)
+    dkdv_launches += 1
+    return dk, dv
+
+
+def flash_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             dout: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor, *,
+             causal: bool, window: int = 0, bq: int = 512, bk: int = 512
+             ) -> torch.Tensor:
+    """Same operands as ``flash_dkdv`` -> fp32 dq (B,H,Sq,D).  CUDA tensors
+    go through the hand-written kernel; CPU tensors through
+    ``flash_dq_plain``."""
+    global dq_launches
+    cpu, (B, H, KH, Sq, Skv, D, bq, bk) = _bwd_operands(
+        "flash_dq", q, k, v, dout, lse, delta, window, bq, bk)
+    if cpu:
+        return flash_dq_plain(q, k, v, dout, lse, delta, causal=causal,
+                              window=window, bq=bq, bk=bk)
+    with torch.cuda.device(q.device):
+        dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    _launch("flash_dq", (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                         dq.data_ptr()),
+            B, H, KH, Sq, Skv, D, causal, window, q.dtype == torch.bfloat16,
+            q.device)
+    dq_launches += 1
+    return dq

@@ -1,5 +1,11 @@
 """Public wrapper: flash attention with model-layout (B, S, H, D) in/out,
-forward only for now.
+differentiable through the hand-written backward kernels.
+
+``_Flash`` mirrors the reference's ``custom_vjp`` (``_flash`` / ``_fwd`` /
+``_bwd``): the forward saves ``(q, k, v, out, lse)``; the backward takes
+``delta = sum(dout * out)`` in fp32 with plain tensor ops (the reference
+computes it outside any kernel too), calls the dk/dv and dq kernels and
+casts their fp32 results to the input types.
 
 Also derives the kernel's static per-tile DMA burst list from its modeled
 tile grid (``transactions``) — the FireBridge §IV data-movement contract:
@@ -10,7 +16,31 @@ from __future__ import annotations
 
 from typing import List, Tuple
 
+import torch
+
 from repro_torch.kernels.flash_attention import kernel as K
+
+
+class _Flash(torch.autograd.Function):
+    """Kernel layout (B, H, S, D) in and out."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, bq, bk):
+        out, lse = K.flash_fwd(q, k, v, causal=causal, window=window, bq=bq,
+                               bk=bk)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.cfg = dict(causal=causal, window=window, bq=bq, bk=bk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.to(q.dtype).contiguous()
+        delta = (dout.float() * out.float()).sum(-1)            # (B,H,Sq)
+        dk, dv = K.flash_dkdv(q, k, v, dout, lse, delta, **ctx.cfg)
+        dq = K.flash_dq(q, k, v, dout, lse, delta, **ctx.cfg)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None, None, None, None)
 
 
 def flash_attention(q, k, v, *, q_pos=None, kv_pos=None, causal=True,
@@ -19,19 +49,11 @@ def flash_attention(q, k, v, *, q_pos=None, kv_pos=None, causal=True,
 
     Positions are assumed to be arange (self-attention); q_pos/kv_pos are
     accepted for interface parity with the models' attention and ignored.
-    Forward only: the dk/dv and dq kernels are queued, so an input that
-    requires a gradient is refused rather than silently detached.
     """
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise NotImplementedError(
-            "flash_attention is forward-only in this port: the backward "
-            "kernels (flash_dkdv, flash_dq) are queued; pass tensors with "
-            "requires_grad=False")
     qt = q.transpose(1, 2).contiguous()
     kt = k.transpose(1, 2).contiguous()
     vt = v.transpose(1, 2).contiguous()
-    out, _ = K.flash_fwd(qt, kt, vt, causal=causal, window=window, bq=bq,
-                         bk=bk)
+    out = _Flash.apply(qt, kt, vt, causal, window, bq, bk)
     return out.transpose(1, 2)
 
 

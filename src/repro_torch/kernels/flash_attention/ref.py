@@ -5,13 +5,15 @@ import math
 
 import torch
 
+from repro_torch._device import true_fp32
 
+
+@true_fp32()
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool, window: int = 0) -> torch.Tensor:
     """q (B,H,Sq,D); k/v (B,KH,Skv,D); positions are arange.  GQA by
     reshape (no KV repeat), masked scores filled with -1e30, ``p``
     re-masked after the softmax, fp32 maths, result in q's dtype."""
-    torch.backends.cuda.matmul.allow_tf32 = False
     B, H, Sq, D = q.shape
     KH, Skv = k.shape[1], k.shape[2]
     G = H // KH

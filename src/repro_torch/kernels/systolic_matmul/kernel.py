@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch._device import true_fp32
 from repro_torch.kernels import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -43,6 +44,7 @@ def _blocks(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int,
     return M, N, K, bm, bn, bk
 
 
+@true_fp32()
 def matmul_plain(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
                  bn: int = 128, bk: int = 128, out_dtype=None) -> torch.Tensor:
     """The kernel's arithmetic in plain tensor ops: inputs upcast to fp32,
@@ -50,7 +52,6 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
     end.  The (m, n) tiles are independent, so each k step updates all of
     them in one batched product over ``(M/bm, N/bn)`` tiles."""
     M, N, K, bm, bn, bk = _blocks(a, b, bm, bn, bk)
-    torch.backends.cuda.matmul.allow_tf32 = False
     at = a.float().view(M // bm, bm, K)              # (nm, bm, K)
     bt = b.float().view(K, N // bn, bn)              # (K, nn, bn)
     acc = torch.zeros(M // bm, N // bn, bm, bn, dtype=torch.float32,

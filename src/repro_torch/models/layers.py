@@ -1,0 +1,158 @@
+"""Shared neural-net building blocks (functions over dicts of tensors) —
+the port of ``repro.models.layers``.
+
+Conventions, as in the reference:
+  * params are plain nested dicts of tensors; layer stacks carry a leading
+    (L, ...) axis and the forward walks it layer by layer.
+  * compute dtype is bf16 with fp32 maths for softmax/norm/loss; master
+    params are fp32.
+  * init draws from an explicit ``torch.Generator`` and makes its tensors
+    on that generator's device; with ``gen=None`` it makes uninitialised
+    tensors on the default device (shapes only, e.g. under
+    ``torch.device("meta")``).  The draws differ from ``jax.random``'s, so
+    tests hand both sides the same numpy parameters instead.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+# ---------------------------------------------------------------------------
+# Init helpers
+# ---------------------------------------------------------------------------
+
+
+def normal(gen: Optional[torch.Generator], shape: Tuple[int, ...],
+           std: float, dtype) -> torch.Tensor:
+    """N(0, std^2) draws in fp32 from ``gen`` on its device, cast to
+    ``dtype``."""
+    if gen is None:
+        return torch.empty(shape, dtype=dtype)
+    x = torch.randn(shape, generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return x.mul_(std).to(dtype)
+
+
+def dense_init(gen: Optional[torch.Generator], d_in: int, d_out: int, dtype,
+               scale: float = 1.0,
+               shape_prefix: Tuple[int, ...] = ()) -> torch.Tensor:
+    return normal(gen, shape_prefix + (d_in, d_out), scale / math.sqrt(d_in),
+                  dtype)
+
+
+def embed_init(gen: Optional[torch.Generator], vocab: int, d: int,
+               dtype) -> torch.Tensor:
+    return normal(gen, (vocab, d), 0.02, dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
+             ) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * w.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, fraction: str, theta: float = 10_000.0,
+               device=None) -> torch.Tensor:
+    """Inverse frequencies for the rotary slice of the head dim ("full":
+    the whole head dim; "half": the first half, chatglm-style)."""
+    rot = head_dim if fraction == "full" else head_dim // 2
+    return 1.0 / (theta ** (torch.arange(0, rot, 2, dtype=torch.float32,
+                                         device=device) / rot))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, fraction: str,
+               theta: float = 10_000.0) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S) int.  Rotates INTERLEAVED pairs
+    (x[..., 0::2], x[..., 1::2]) and re-stacks them on the last axis, as
+    the reference does — not the half-split layout."""
+    if fraction == "none":
+        return x
+    d = x.shape[-1]
+    rot = d if fraction == "full" else d // 2
+    inv = rope_freqs(d, fraction, theta, device=x.device)     # (rot/2,)
+    ang = positions[..., None].float() * inv                   # (B, S, rot/2)
+    cos = torch.cos(ang)[:, :, None, :]                        # (B, S, 1, rot/2)
+    sin = torch.sin(ang)[:, :, None, :]
+    xr = x[..., :rot].float()
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    yr = torch.stack([y1, y2], dim=-1).reshape(xr.shape)
+    if rot == d:
+        return yr.to(x.dtype)
+    return torch.cat([yr.to(x.dtype), x[..., rot:]], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+
+def mlp_init(gen: Optional[torch.Generator], d_model: int, d_ff: int,
+             mlp_type: str, dtype, shape_prefix: Tuple[int, ...] = ()) -> dict:
+    if mlp_type == "swiglu":
+        return {
+            "w_gate": dense_init(gen, d_model, d_ff, dtype, shape_prefix=shape_prefix),
+            "w_up": dense_init(gen, d_model, d_ff, dtype, shape_prefix=shape_prefix),
+            "w_down": dense_init(gen, d_ff, d_model, dtype, shape_prefix=shape_prefix),
+        }
+    return {
+        "w_in": dense_init(gen, d_model, d_ff, dtype, shape_prefix=shape_prefix),
+        "w_out": dense_init(gen, d_ff, d_model, dtype, shape_prefix=shape_prefix),
+    }
+
+
+def mlp_apply(w: dict, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
+    if mlp_type == "swiglu":
+        g = x @ w["w_gate"]
+        u = x @ w["w_up"]
+        return (F.silu(g) * u) @ w["w_down"]
+    # jax.nn.gelu defaults to the tanh approximation
+    h = F.gelu(x @ w["w_in"], approximate="tanh")
+    return h @ w["w_out"]
+
+
+# ---------------------------------------------------------------------------
+# Cross-entropy without a (B, S, V) one-hot
+# ---------------------------------------------------------------------------
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None,
+                          z_loss: float = 0.0
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """logits (..., V) bf16/f32; labels (...) int.  Returns (mean_loss, lse).
+
+    The max is a constant of the gradient (stop-gradient, as in the
+    reference) and the label logit is picked with a gather of one index per
+    position: no (..., V) one-hot or index tensor is made."""
+    lf = logits.float()
+    m = lf.amax(dim=-1, keepdim=True).detach()
+    shifted = lf - m
+    lse = torch.log(torch.exp(shifted).sum(dim=-1)) + m[..., 0]
+    picked = lf.gather(-1, labels[..., None].long())[..., 0]
+    nll = lse - picked
+    if z_loss:
+        nll = nll + z_loss * lse.square()
+    if mask is not None:
+        denom = torch.clamp(mask.sum(), min=1.0)
+        loss = (nll * mask).sum() / denom
+    else:
+        loss = nll.mean()
+    return loss, lse

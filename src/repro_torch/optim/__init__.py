@@ -1,0 +1,10 @@
+from repro_torch.optim.adamw import (
+    AdamWConfig,
+    adamw_init,
+    adamw_update,
+    clip_by_global_norm,
+    lr_schedule,
+)
+
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "clip_by_global_norm",
+           "lr_schedule"]

@@ -9,16 +9,23 @@ card.  Run them on a GPU machine with
 
 ``python3 chip_smoke.py`` makes the same comparisons (and more shapes)
 without pytest.  Tolerances are the reference's own: matmul 1e-4 (fp32) /
-1.0 (bf16) times max(1, max|ref|); attention 2e-5 (fp32) / 3e-2 (bf16).
+1.0 (bf16) times max(1, max|ref|); attention 2e-5 (fp32) / 3e-2 (bf16);
+attention gradients 5e-4 times max(1, max|plain|) (both sides take the
+same upcast inputs and accumulate in fp32).
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch._tree import leaves, tree_map
+from repro_torch.configs import get_config, smoke
 from repro_torch.kernels.flash_attention import kernel as K
 from repro_torch.kernels.flash_attention import ref as R
 from repro_torch.kernels.systolic_matmul import kernel as MM
 from repro_torch.kernels.systolic_matmul import ref as MMref
+from repro_torch.launch.steps import make_train_state, make_train_step
+from repro_torch.models.transformer import RunFlags
+from repro_torch.optim.adamw import AdamWConfig
 
 pytestmark = pytest.mark.gpu
 
@@ -88,3 +95,91 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     q = torch.ones(1, 2, 32, 24, device=card)
     with pytest.raises(ValueError):
         K.flash_fwd(q, q, q, causal=True)        # head dim 24
+
+
+BWD_ROWS = [
+    # B, H, KH, S, D, causal, window, dtype: the reference's backward rows
+    # (SWEEP[:3]), a GQA row with G=4, bf16 at the model's head dim, D=128,
+    # and a length that is no multiple of the kernels' 64-row tile
+    (2, 4, 2, 128, 16, True, 0, torch.float32),
+    (1, 4, 4, 64, 32, False, 0, torch.float32),
+    (2, 8, 2, 128, 16, True, 48, torch.float32),
+    (1, 8, 2, 256, 64, True, 0, torch.float32),
+    (2, 8, 2, 256, 64, True, 0, torch.bfloat16),
+    (1, 2, 1, 128, 128, True, 0, torch.bfloat16),
+    (1, 4, 1, 96, 32, True, 8, torch.float32),
+]
+
+
+@pytest.mark.parametrize("B,H,KH,S,D,causal,window,dt", BWD_ROWS)
+def test_flash_bwd_kernels_on_card(card, B, H, KH, S, D, causal, window, dt):
+    rng = np.random.default_rng(4)
+    mk = lambda h: torch.from_numpy(
+        rng.normal(size=(B, h, S, D)).astype(np.float32)).to(card, dt)
+    q, k, v, dout = mk(H), mk(KH), mk(KH), mk(H)
+    blk = 32
+    kw = dict(causal=causal, window=window, bq=blk, bk=blk)
+    _, lse = K.flash_fwd(q, k, v, **kw)
+    # delta from the fp32 output on the upcast inputs, which is what
+    # autograd through the oracle sees (a bf16-rounded ``out`` would shift
+    # every ds by its rounding)
+    qf, kf, vf = (t.float().requires_grad_() for t in (q, k, v))
+    o = R.attention_ref(qf, kf, vf, causal=causal, window=window)
+    delta = (dout.float() * o.detach()).sum(-1)
+    b_dkdv, b_dq = K.dkdv_launches, K.dq_launches
+    dk, dv = K.flash_dkdv(q, k, v, dout, lse, delta, **kw)
+    dq = K.flash_dq(q, k, v, dout, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert (K.dkdv_launches, K.dq_launches) == (b_dkdv + 1, b_dq + 1)
+    assert dk.dtype == dv.dtype == dq.dtype == torch.float32
+    p_dk, p_dv = K.flash_dkdv_plain(q, k, v, dout, lse, delta, **kw)
+    p_dq = K.flash_dq_plain(q, k, v, dout, lse, delta, **kw)
+    # autograd through the oracle on the same (upcast) inputs
+    a_dq, a_dk, a_dv = torch.autograd.grad(o, (qf, kf, vf), dout.float())
+    for got, plain, auto in ((dq, p_dq, a_dq), (dk, p_dk, a_dk),
+                             (dv, p_dv, a_dv)):
+        assert torch.isfinite(got).all()
+        tol = 5e-4 * max(1.0, float(plain.abs().max()))
+        assert float((got - plain).abs().max()) < tol
+        assert float((got - auto).abs().max()) < tol
+
+
+def test_bwd_wrappers_refuse_what_the_kernels_do_not_take(card):
+    q = torch.ones(1, 2, 64, 16, device=card)
+    lse = torch.zeros(1, 2, 64, device=card)
+    with pytest.raises(ValueError):
+        K.flash_dq(q, q, q, q[:, :1], lse, lse, causal=True)  # dout shape
+    with pytest.raises(TypeError):
+        K.flash_dkdv(q, q, q, q.bfloat16(), lse, lse, causal=True)
+    with pytest.raises(TypeError):
+        K.flash_dq(q, q, q, q, lse.double(), lse, causal=True)
+
+
+def test_train_step_on_card_matches_cpu(card):
+    """One ``make_train_step`` at smoke(llama3.2-1b) size, fp32 compute,
+    ``attn_impl="pallas"``: the card (kernels, 2L forward and L of each
+    backward launch under remat) against the CPU (plain versions), from the
+    same state and batch; loss and gradient norm within 1e-4 relative."""
+    cfg = smoke(get_config("llama3.2-1b"))
+    flags = RunFlags(attn_impl="pallas", compute_dtype="float32")
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=3)
+    cpu_state = make_train_state(cfg, torch.Generator().manual_seed(2))
+    gpu_state = tree_map(lambda t: t.detach().to(card).requires_grad_(
+        t.requires_grad), cpu_state)
+    rng = np.random.default_rng(2)
+    b = {k: rng.integers(0, cfg.vocab_size, (2, 128)).astype(np.int32)
+         for k in ("tokens", "labels")}
+    step = make_train_step(cfg, flags, None, opt)
+    _, want = step(cpu_state, {k: torch.from_numpy(v) for k, v in b.items()})
+    before = (K.launches, K.dkdv_launches, K.dq_launches)
+    new, got = step(gpu_state, {k: torch.from_numpy(v).to(card)
+                                for k, v in b.items()})
+    torch.cuda.synchronize()
+    L = cfg.n_layers
+    assert (K.launches, K.dkdv_launches, K.dq_launches) == (
+        before[0] + 2 * L, before[1] + L, before[2] + L)
+    for key in ("loss", "grad_norm", "lr"):
+        assert abs(float(got[key]) - float(want[key])) <= 1e-4 * abs(
+            float(want[key])), key
+    assert all(torch.isfinite(p).all() and p.device.type == "cuda"
+               for p in leaves(new["params"]))

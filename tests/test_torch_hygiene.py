@@ -40,10 +40,17 @@ def test_port_files_exist():
                  "core/counters.py", "core/registers.py",
                  "core/equivalence.py", "core/bridge.py", "core/coverify.py",
                  "kernels/_build.py", "kernels/systolic_matmul/kernel.py",
-                 "kernels/flash_attention/kernel.py", "convert.py"):
+                 "kernels/flash_attention/kernel.py", "convert.py",
+                 "configs/base.py", "configs/llama3_2_1b.py",
+                 "models/layers.py", "models/attention.py",
+                 "models/transformer.py", "models/inputs.py",
+                 "optim/adamw.py", "launch/steps.py", "data/synthetic.py",
+                 "data/pipeline.py", "checkpoint/manager.py",
+                 "runtime/failures.py", "runtime/trainer.py"):
         assert want in names
     assert (PKG / "kernels/csrc/systolic_matmul.cu").exists()
     assert (PKG / "kernels/csrc/flash_fwd.cu").exists()
+    assert (PKG / "kernels/csrc/flash_bwd.cu").exists()
 
 
 @pytest.mark.parametrize("path", FILES,
@@ -131,7 +138,7 @@ def test_build_raises_without_compiler(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     monkeypatch.setattr(_build, "_libs", {})
-    assert _build.sources() == ["flash_fwd", "systolic_matmul"]
+    assert _build.sources() == ["flash_bwd", "flash_fwd", "systolic_matmul"]
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load("systolic_matmul")
     with pytest.raises(FileNotFoundError):

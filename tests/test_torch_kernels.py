@@ -8,11 +8,13 @@ against these plain versions on the card by chip_smoke.py).
 
 Tolerances are the reference's own (tests/test_kernels_misc.py,
 tests/test_kernels_flash.py): matmul 1e-4 (fp32) / 1.0 (bf16) times
-max(1, max|ref|); attention 2e-5 (fp32) / 3e-2 (bf16) absolute.  Both
+max(1, max|ref|); attention 2e-5 (fp32) / 3e-2 (bf16) absolute; attention
+gradients 5e-4 absolute (fp32, as the reference tests them).  Both
 sides accumulate in fp32 but sum in different orders, and bf16 rounds the
 final cast, hence not bit-for-bit.  ``transactions()`` carries no values
 and must be equal tuple for tuple.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -192,12 +194,118 @@ def test_flash_attention_model_layout_matches_reference():
 
 
 def test_flash_attention_refuses_requires_grad():
-    q = torch.randn(1, 32, 2, 16, requires_grad=True)
-    kv = torch.randn(1, 32, 2, 16)
-    with pytest.raises(NotImplementedError, match="backward"):
-        fa_ops.flash_attention(q, kv, kv)
-    with pytest.raises(NotImplementedError, match="backward"):
-        fa_ops.flash_attention(kv, kv.clone().requires_grad_(), kv)
+    """(Name kept from the forward-only slice, which refused such inputs.)
+    Inputs that require a gradient are accepted now and get one: the
+    backward runs through ``flash_dkdv`` / ``flash_dq`` (their plain
+    versions on CPU tensors) and only the inputs that asked for a gradient
+    receive one, in their own dtype."""
+    rng = np.random.default_rng(10)
+    mk = lambda h: torch.from_numpy(rng.normal(size=(1, 32, h, 16))
+                                    .astype(np.float32))
+    q, kv = mk(2).requires_grad_(), mk(2)
+    out = fa_ops.flash_attention(q, kv, kv, bq=16, bk=16)
+    assert out.requires_grad
+    (gq,) = torch.autograd.grad(out.square().sum(), (q,))
+    qr = q.detach().requires_grad_()
+    want = R.attention_ref(qr.transpose(1, 2), kv.transpose(1, 2),
+                           kv.transpose(1, 2), causal=True).transpose(1, 2)
+    (wq,) = torch.autograd.grad(want.square().sum(), (qr,))
+    assert gq.dtype == q.dtype and (gq - wq).abs().max() < 5e-4
+    k = kv.bfloat16().requires_grad_()
+    out = fa_ops.flash_attention(q.detach().bfloat16(), k, kv.bfloat16())
+    (gk,) = torch.autograd.grad(out.float().sum(), (k,))
+    assert gk.dtype == torch.bfloat16 and torch.isfinite(gk.float()).all()
+
+
+# the reference's gradient rows (SWEEP[:3]) and a GQA row with G = 4
+BWD_SWEEP = SWEEP[:3] + [(1, 8, 2, 64, 16, True, 0, "float32")]
+
+
+def _model_layout_inputs(B, H, KH, S, D):
+    rng = np.random.default_rng(11)
+    return [rng.normal(size=(B, S, h, D)).astype(np.float32)
+            for h in (H, KH, KH)]
+
+
+@pytest.mark.parametrize("B,H,KH,S,D,causal,window,dt", BWD_SWEEP)
+def test_flash_backward_matches_reference(B, H, KH, S, D, causal, window, dt):
+    """The port's ``ops.flash_attention`` under autograd against the
+    reference's under ``jax.grad`` (Pallas in interpret mode), for the
+    reference's own loss ``sum(out^2)``."""
+    arrs = _model_layout_inputs(B, H, KH, S, D)
+    kw = dict(causal=causal, window=window, bq=32, bk=32)
+
+    def f_ref(q, k, v):
+        return (ref_fa_ops.flash_attention(q, k, v, **kw).astype(jnp.float32)
+                ** 2).sum()
+
+    want = jax.grad(f_ref, argnums=(0, 1, 2))(*map(jnp.asarray, arrs))
+    ts = [torch.from_numpy(a).requires_grad_() for a in arrs]
+    out = fa_ops.flash_attention(*ts, **kw)
+    got = torch.autograd.grad(out.float().square().sum(), ts)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert np.abs(g.numpy() - np.asarray(w)).max() < 5e-4
+
+
+@pytest.mark.parametrize("B,H,KH,S,D,causal,window,dt", BWD_SWEEP)
+def test_flash_bwd_plain_matches_autograd_of_oracle(B, H, KH, S, D, causal,
+                                                    window, dt):
+    """``flash_dkdv_plain`` / ``flash_dq_plain`` (the kernels' arithmetic)
+    against autograd through the port's own oracle, and the wrappers' CPU
+    route equal to them."""
+    q, k, v = (torch.from_numpy(a).transpose(1, 2).contiguous()
+               for a in _model_layout_inputs(B, H, KH, S, D))
+    dout = torch.from_numpy(np.random.default_rng(12).normal(
+        size=q.shape).astype(np.float32))
+    kw = dict(causal=causal, window=window, bq=32, bk=32)
+    out, lse = K.flash_fwd_plain(q, k, v, **kw)
+    delta = (dout * out).sum(-1)
+    dk, dv = K.flash_dkdv_plain(q, k, v, dout, lse, delta, **kw)
+    dq = K.flash_dq_plain(q, k, v, dout, lse, delta, **kw)
+    qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
+    o = R.attention_ref(qa, ka, va, causal=causal, window=window)
+    want = torch.autograd.grad(o, (qa, ka, va), dout)
+    for g, w in zip((dq, dk, dv), want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert (g - w).abs().max() < 5e-4 * max(1.0, float(g.abs().max()))
+    wk, wv = K.flash_dkdv(q, k, v, dout, lse, delta, **kw)
+    assert torch.equal(wk, dk) and torch.equal(wv, dv)
+    assert torch.equal(K.flash_dq(q, k, v, dout, lse, delta, **kw), dq)
+    # the modeled blocks change the result only by rounding
+    dq16 = K.flash_dq_plain(q, k, v, dout, lse, delta, causal=causal,
+                            window=window, bq=16, bk=64)
+    assert (dq16 - dq).abs().max() < 1e-5 * max(1.0, float(dq.abs().max()))
+
+
+def test_bwd_launch_counts_untouched_on_cpu():
+    q = torch.ones(1, 2, 32, 16)
+    lse = torch.zeros(1, 2, 32)
+    K.flash_dkdv(q, q, q, q, lse, lse, causal=True)
+    K.flash_dq(q, q, q, q, lse, lse, causal=True)
+    assert K.dkdv_launches == 0 and K.dq_launches == 0
+
+
+def test_plain_versions_and_oracles_leave_tf32_switch_alone():
+    """A plain version or oracle switches TF32 off only while it runs and
+    restores the caller's setting."""
+    q = torch.ones(1, 2, 32, 16)
+    lse = torch.zeros(1, 2, 32)
+    a = torch.ones(16, 16)
+    calls = [lambda: MM.matmul_plain(a, a), lambda: MMref.matmul_ref(a, a),
+             lambda: K.flash_fwd_plain(q, q, q, causal=True),
+             lambda: R.attention_ref(q, q, q, causal=True),
+             lambda: K.flash_dkdv_plain(q, q, q, q, lse, lse, causal=True),
+             lambda: K.flash_dq_plain(q, q, q, q, lse, lse, causal=True)]
+    before = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for setting in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = setting
+            for call in calls:
+                call()
+                assert torch.backends.cuda.matmul.allow_tf32 is setting
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
 
 
 @pytest.mark.parametrize("M,N,K,bm,bn,bk,nb", [
@@ -245,3 +353,8 @@ def test_wrappers_reject_bad_shapes():
     with pytest.raises(AssertionError):
         K.flash_fwd(torch.ones(1, 4, 48, 16), torch.ones(1, 4, 48, 16),
                     torch.ones(1, 4, 48, 16), causal=True, bq=32, bk=32)
+    lse = torch.zeros(1, 4, 32)
+    with pytest.raises(ValueError):                 # dout not shaped like q
+        K.flash_dq(q, q, q, q[:, :2], lse, lse, causal=True)
+    with pytest.raises(ValueError):                 # lse not (B, H, Sq)
+        K.flash_dkdv(q, q, q, q, lse[:, :2], lse, causal=True)
