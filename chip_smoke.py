@@ -6,7 +6,7 @@
 Builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` into
 ``build/`` (one ``nvcc`` per source, all started together), holds each
 kernel against its plain PyTorch version and its ``ref.py`` oracle on the
-card, and drives the port's two paths:
+card, and drives the port's three paths:
 
   * co-verification — ``coverify()`` over the oracle / interpret / compiled
     backends for the systolic matmul and the flash-attention forward,
@@ -15,7 +15,14 @@ card, and drives the port's two paths:
   * training — llama3.2-1b at full width (16 layers, seq 2048, batch 2,
     bf16 compute, ``attn_impl="pallas"``): one loss + backward with the
     kernels against the naive attention, then three ``Trainer`` steps with
-    checkpointing, counting the attention kernels' launches.
+    checkpointing, counting the attention kernels' launches;
+  * serving — rwkv6-7b and zamba2-2.7b at full width and depth (bf16
+    weights) through ``ServingEngine``: eight requests rung in through the
+    CSR doorbell, prefill on the WKV-6 (rwkv6) and SSD + attention
+    (zamba2) kernels, batched decode; each served prefill's scan inputs
+    re-run through the plain versions layer by layer, the kernel route's
+    logits against the plain route's, and prefill + decode against a full
+    prefill at smoke size in fp32.
 
 Every line of standard output is one JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure (no CUDA device, a build or
@@ -26,6 +33,7 @@ code and no last line.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import hashlib
 import json
 import shutil
@@ -54,15 +62,21 @@ from repro_torch.kernels.flash_attention import ref as FAref
 from repro_torch.kernels.flash_attention.sweep import (_inputs as fa_inputs,
                                                        flash_backends,
                                                        flash_firmware)
+from repro_torch.kernels.mamba2_scan import kernel as SSDK
+from repro_torch.kernels.mamba2_scan import ref as SSDref
+from repro_torch.kernels.rwkv6_wkv import kernel as WKVK
+from repro_torch.kernels.rwkv6_wkv import ref as WKVref
 from repro_torch.kernels.systolic_matmul import kernel as MMK
 from repro_torch.kernels.systolic_matmul import ref as MMref
 from repro_torch.kernels.systolic_matmul.sweep import (matmul_backends,
                                                        matmul_firmware)
 from repro_torch.launch import steps as steps_lib
 from repro_torch.launch.steps import make_train_state, make_train_step
+from repro_torch.models import transformer as tf
 from repro_torch.models.transformer import RunFlags, make_loss_fn
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
+from repro_torch.serving import Request, ServingEngine
 
 # Published dense peaks of one H100 SXM (NVIDIA data sheet): the fp32 rate
 # outside the tensor cores bounds a true-fp32 product; bf16 operands could
@@ -174,9 +188,11 @@ FA_SHAPES = [
     (1, 32, 8, 2048, 64, True, 512, torch.bfloat16, 128),
     (1, 32, 32, 2048, 64, True, 0, torch.float32, 128),
     (2, 32, 8, 2048, 64, True, 0, torch.bfloat16, 512),
+    (1, 32, 32, 2048, 80, True, 4096, torch.bfloat16, 512),
 ]
 FA_MAIN = 8
 FA_TRAIN = 9
+FA_ZAMBA = 10        # zamba2-2.7b's shared attention: head dim 80, window
 
 # Backward: the reference's gradient rows (SWEEP[:3] of
 # tests/test_kernels_flash.py), a GQA row with G=4 (a missing head sum shows
@@ -187,6 +203,7 @@ BWD_SHAPES = [
     (2, 8, 2, 128, 16, True, 48, torch.float32, 32),
     (1, 8, 2, 256, 64, True, 0, torch.float32, 32),
     (2, 32, 8, 2048, 64, True, 0, torch.bfloat16, 512),
+    (1, 32, 32, 1024, 80, True, 4096, torch.float32, 512),
 ]
 BWD_MAIN = 4
 # the reference's gradient tolerance, times max(1, max|plain|); kernel,
@@ -366,15 +383,117 @@ def check_flash_bwd(shape):
     return rows
 
 
+# Scans: the reference's two test rows each (tests/test_kernels_misc.py),
+# then the shapes one served prefill gives the kernels: rwkv6-7b (H=64,
+# K=64) and zamba2-2.7b (H=80, P=N=64, chunk 128; x in bf16 as served, and
+# in fp32) at a 1536-token prompt.
+WKV_SHAPES = [(2, 64, 4, 16), (1, 32, 8, 32), (1, 1536, 64, 64)]  # B,L,H,K
+WKV_MAIN = 2
+SSD_SHAPES = [  # B, L, H, P, N, chunk, x/B/C dtype
+    (2, 64, 8, 16, 8, 16, torch.float32),
+    (1, 128, 4, 8, 16, 32, torch.float32),
+    (1, 1536, 80, 64, 64, 128, torch.bfloat16),
+    (1, 1536, 80, 64, 64, 128, torch.float32),
+]
+SSD_MAIN = 2
+# the reference's 1e-3, times max(1, max|plain|) as for the gradients
+SCAN_TOL = 1e-3
+
+
+def scan_tol(plain) -> float:
+    return SCAN_TOL * max(1.0, max(float(t.abs().max()) for t in plain))
+
+
+def check_wkv(shape) -> dict:
+    B, L, H, K = shape
+    rng = np.random.default_rng(B * 31 + L + H * 7 + K)
+    g = lambda *sh: torch.from_numpy(
+        rng.normal(size=sh).astype(np.float32)).cuda()
+    r, k, v = g(B, L, H, K), g(B, L, H, K), g(B, L, H, K)
+    w = torch.exp(-torch.exp(g(B, L, H, K)))
+    u = g(H, K) * 0.5
+    kw = dict(chunk=16, hb=min(8, H))
+    got = WKVK.wkv_scan(r, k, v, w, u, **kw)
+    torch.cuda.synchronize()
+    plain = WKVK.wkv_scan_plain(r, k, v, w, u, **kw)
+    oracle = WKVref.wkv_scan_ref(r, k, v, w, u)
+    tol = scan_tol(plain)
+    row = {"shape": [B, L, H, K], "dtype": "float32", "tol": tol,
+           "max_abs_err": max(max_err(a, b) for a, b in zip(got, plain)),
+           "max_abs_err_ref": max(max_err(a, b) for a, b in zip(got, oracle)),
+           "kernel_ms": time_ms(lambda: WKVK.wkv_scan(r, k, v, w, u, **kw),
+                                20),
+           "plain_ms": time_ms(lambda: WKVK.wkv_scan_plain(r, k, v, w, u,
+                                                           **kw), 3),
+           "library_ms": None}
+    # 4 FLOPs per (step, head, k, v): r.S, the bonus, w S + k v
+    row.update(bound(4.0 * B * L * H * K * K,
+                     (5 * B * L * H * K + H * K + B * H * K * K) * 4,
+                     "float32"))
+    if not all(torch.isfinite(t).all() for t in got):
+        fail(f"wkv_scan {shape}: non-finite output")
+    if not (row["max_abs_err"] < tol and row["max_abs_err_ref"] < tol):
+        fail(f"wkv_scan {row}: outside tolerance")
+    return row
+
+
+def ssd_flops(B, L, H, P, N, cl) -> float:
+    """C B^T once per (batch, chunk) and, per head, the product of M with x,
+    both on the causal triangle only (cl (cl + 1) / 2 live (i, j) pairs);
+    per head also the incoming state's C state^T and the state update."""
+    nc = B * (L // cl)
+    tri = cl * (cl + 1.0)               # 2 FLOPs per live pair
+    return nc * (tri * N + H * (tri * P + 4.0 * cl * P * N))
+
+
+def check_ssd(shape) -> dict:
+    B, L, H, P, N, cl, dt_ = shape
+    rng = np.random.default_rng(B * 13 + L + H * 5 + P + N)
+    g = lambda *sh: torch.from_numpy(
+        rng.normal(size=sh).astype(np.float32)).cuda()
+    x, B_, C_ = g(B, L, H, P).to(dt_), g(B, L, N).to(dt_), g(B, L, N).to(dt_)
+    dt = F.softplus(g(B, L, H))
+    A = -torch.exp(g(H) * 0.5)
+    D = torch.ones(H, device="cuda")
+    kw = dict(chunk=cl, hb=min(8, H))
+    got = SSDK.ssd_scan(x, dt, B_, C_, A, D, **kw)
+    torch.cuda.synchronize()
+    plain = SSDK.ssd_scan_plain(x, dt, B_, C_, A, D, **kw)
+    oracle = SSDref.ssd_scan_ref(x, dt, B_, C_, A, D)
+    tol = scan_tol(plain)
+    es = x.element_size()
+    row = {"shape": [B, L, H, P, N], "chunk": cl,
+           "dtype": str(dt_).split(".")[1], "tol": tol,
+           "max_abs_err": max(max_err(a, b) for a, b in zip(got, plain)),
+           "max_abs_err_ref": max(max_err(a, b) for a, b in zip(got, oracle)),
+           "kernel_ms": time_ms(lambda: SSDK.ssd_scan(x, dt, B_, C_, A, D,
+                                                      **kw), 20),
+           "plain_ms": time_ms(lambda: SSDK.ssd_scan_plain(x, dt, B_, C_, A,
+                                                           D, **kw), 3),
+           "library_ms": None,
+           "smem_bytes": SSDK.smem_bytes(cl, P, N)}
+    nbytes = (B * L * H * P * es + B * L * H * 4 + 2 * B * L * N * es + 2 * H * 4
+              + B * L * H * P * 4 + B * H * P * N * 4)
+    row.update(bound(ssd_flops(B, L, H, P, N, cl), nbytes, "float32"))
+    if not all(torch.isfinite(t).all() for t in got):
+        fail(f"ssd_scan {shape}: non-finite output")
+    if not (row["max_abs_err"] < tol and row["max_abs_err_ref"] < tol):
+        fail(f"ssd_scan {row}: outside tolerance")
+    return row
+
+
 def phase_kernels():
     mm_rows = [check_matmul(s) for s in MM_SHAPES]
     fa_rows = [check_flash(s) for s in FA_SHAPES]
     bwd = [check_flash_bwd(s) for s in BWD_SHAPES]
     dkdv_rows = [r[0] for r in bwd]
     dq_rows = [r[1] for r in bwd]
+    wkv_rows = [check_wkv(s) for s in WKV_SHAPES]
+    ssd_rows = [check_ssd(s) for s in SSD_SHAPES]
     emit({"phase": "kernel_checks", "systolic_matmul": mm_rows,
-          "flash_fwd": fa_rows, "flash_dkdv": dkdv_rows, "flash_dq": dq_rows})
-    return mm_rows, fa_rows, dkdv_rows, dq_rows
+          "flash_fwd": fa_rows, "flash_dkdv": dkdv_rows, "flash_dq": dq_rows,
+          "wkv_scan": wkv_rows, "ssd_scan": ssd_rows})
+    return mm_rows, fa_rows, dkdv_rows, dq_rows, wkv_rows, ssd_rows
 
 
 # -------------------------------------------------------------- phases 4, 5
@@ -762,6 +881,280 @@ def phase_train_llama(card: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ phases 8, 9
+SERVE = dict(max_slots=4, max_len=2048, prompt_pad=128, batching="storm",
+             n_requests=8, seed=0)
+# prompt lengths: every multiple of the 128-token bucket in 256-1536 (no
+# left padding reaches a scan state); the first request is the longest,
+# the shape phase 3 checks the scans at
+PROMPT_LENS = tuple(range(256, 1537, 128))
+SERVE_NEW = (16, 32)
+# Kernel route vs plain route, last-position logits of one served prefill
+# (1536-token prompt, the served weights).  The routes differ only in the
+# fp32 summation order inside the kernels (~1e-7 relative per output).  In
+# fp32 compute (the same weights upcast exactly) nothing else rounds
+# differently: held to 1e-3 of max|logit|, which leaves four orders of
+# magnitude for the amplification through 32 / 54 layers.  In bf16 compute,
+# as served, those last-bit differences flip bf16 roundings that
+# random-weight layers amplify to tens of percent of the logits, so the
+# bf16 distances are reported, not gated: the per-layer checks and the
+# fp32 route hold the kernels.
+ROUTE_RTOL_FP32 = 1e-3
+# prefill + decode against a full prefill, smoke size, fp32 on the card:
+# tests/test_decode_consistency.py's bound
+DECODE_RTOL = 1e-4
+SERVE_ARCHS = {
+    "rwkv6-7b": dict(flags=RunFlags(), kernels={"wkv_scan": (WKVK, 32)}),
+    "zamba2-2.7b": dict(flags=RunFlags(attn_impl="pallas"),
+                        kernels={"ssd_scan": (SSDK, 45),
+                                 "flash_fwd": (FAK, 9)}),
+}
+PLAIN = {"wkv_scan": (WKVK, "wkv_scan_plain"),
+         "ssd_scan": (SSDK, "ssd_scan_plain"),
+         "flash_fwd": (FAK, "flash_fwd_plain")}
+
+
+def serve_requests(cfg):
+    rng = np.random.default_rng(SERVE["seed"])
+    lens = [max(PROMPT_LENS)] + [int(x) for x in rng.choice(
+        PROMPT_LENS, SERVE["n_requests"] - 1)]
+    return [(rid, rng.integers(1, cfg.vocab_size, ln).astype(np.int32),
+             int(rng.integers(SERVE_NEW[0], SERVE_NEW[1] + 1)))
+            for rid, ln in enumerate(lens)]
+
+
+def drive_doorbell(eng, reqs) -> None:
+    """Submit through the CSR protocol (tests/test_serving.py), then run."""
+    for rid, prompt, mx in reqs:
+        eng.mem.buffers["prompt_in"].array[:len(prompt)] = prompt
+        eng.csr.fb_write_32(eng.csr.addr_of("SUBMIT_ID"), rid)
+        eng.csr.fb_write_32(eng.csr.addr_of("SUBMIT_LEN"), len(prompt))
+        eng.csr.fb_write_32(eng.csr.addr_of("SUBMIT_MAXNEW"), mx)
+        eng.csr.fb_write_32(eng.csr.addr_of("DOORBELL"), 1)
+    eng.run_until_done()
+
+
+class Swap:
+    """Replace kernel wrappers by other callables while active (callers
+    look the wrappers up at call time, as ``ops.py`` does)."""
+
+    def __init__(self, repl: dict):
+        self.repl = repl
+
+    def __enter__(self):
+        self.orig = {n: getattr(mod, n) for n, (mod, _) in self.repl.items()}
+        for n, (mod, fn) in self.repl.items():
+            setattr(mod, n, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for n, (mod, _) in self.repl.items():
+            setattr(mod, n, self.orig[n])
+
+
+def route_checks(cfg, flags, prefill, params, prompt, kernels) -> dict:
+    """One served prefill through both routes, in bf16 as served and in
+    fp32 on the same weights.  Kernel route: every launch's inputs also go
+    through the plain version, each layer held to the kernel's tolerance.
+    Plain route: every kernel wrapper replaced by its plain version.
+    Returns per-kernel worst error/tolerance and the logits' relative
+    differences."""
+    worst = {n: 0.0 for n in kernels}
+    n_checked = {n: 0 for n in kernels}
+    batch = {"tokens": torch.from_numpy(prompt[None]).cuda()}
+
+    def checked(name):
+        mod, pname = PLAIN[name]
+        kern, plain_fn = getattr(mod, name), getattr(mod, pname)
+
+        def run(*a, **k):
+            got = kern(*a, **k)
+            want = plain_fn(*a, **k)
+            pairs = list(zip(got, want))
+            # the scans' y and state each to 1e-3 * max(1, max|plain|);
+            # attention's out to its bf16 3e-2 and lse to 1e-4 * max(1, |lse|)
+            if name == "flash_fwd":
+                tols = [3e-2 if got[0].dtype == torch.bfloat16 else 2e-5,
+                        1e-4 * max(1.0, float(want[1].abs().max()))]
+            else:
+                tols = [scan_tol([w]) for _, w in pairs]
+            worst[name] = max(worst[name], max(
+                max_err(g, w) / t for (g, w), t in zip(pairs, tols)))
+            n_checked[name] += 1
+            return got
+        return (mod, run)
+
+    plain = {n: (PLAIN[n][0], getattr(*PLAIN[n])) for n in kernels}
+    rel = lambda a, b: max_err(a, b) / float(b.float().abs().max())
+    with Swap({n: checked(n) for n in kernels}):
+        lg_k, _ = prefill(params, batch)
+    with Swap(plain):
+        lg_p, _ = prefill(params, batch)
+    params32 = tree_map(lambda a: a.float(), params)
+    prefill32 = tf.make_prefill_fn(
+        cfg, dataclasses.replace(flags, compute_dtype="float32"), None,
+        SERVE["max_len"])
+    lg32_k, _ = prefill32(params32, batch)
+    with Swap(plain):
+        lg32_p, _ = prefill32(params32, batch)
+    del params32
+    torch.cuda.empty_cache()
+    return {"per_layer_err_over_tol": worst, "layers_checked": n_checked,
+            "prompt_len": len(prompt),
+            "logits_route_rel_fp32": rel(lg32_k, lg32_p),
+            "route_rtol_fp32": ROUTE_RTOL_FP32,
+            # reported only (see ROUTE_RTOL_FP32)
+            "logits_route_rel_bf16": rel(lg_k, lg_p),
+            "bf16_plain_vs_fp32_plain_rel": rel(lg_p, lg32_p),
+            "kernel_bf16_vs_fp32_plain_rel": rel(lg_k, lg32_p)}
+
+
+def smoke_decode_consistency(arch: str, flags: RunFlags) -> float:
+    """tests/test_decode_consistency.py on the card: smoke config, fp32,
+    B=2, prefill 48 tokens then decode 16, against a full prefill of 64."""
+    cfg = smoke(get_config(arch))
+    flags = dataclasses.replace(flags, compute_dtype="float32")
+    params = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(7))
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32)).cuda()
+    prefill = tf.make_prefill_fn(cfg, flags, None, 64)
+    decode = tf.make_decode_fn(cfg, flags)
+    full, _ = prefill(params, {"tokens": toks})
+    lg, cache = prefill(params, {"tokens": toks[:, :48]})
+    for t in range(48, 64):
+        lg, cache = decode(params, cache, toks[:, t])
+    return max_err(lg, full) / float(full.abs().max())
+
+
+def phase_serve(card: str, arch: str) -> dict:
+    spec = SERVE_ARCHS[arch]
+    cfg, flags = get_config(arch), spec["flags"]
+    kernels = spec["kernels"]
+    dev = torch.device("cuda")
+    gc.collect()                      # what earlier phases left in cycles
+    torch.cuda.empty_cache()
+    decode_rel = smoke_decode_consistency(arch, flags)
+    if not decode_rel < DECODE_RTOL:
+        fail(f"serve {arch}: smoke prefill+decode vs full prefill "
+             f"{decode_rel:.3e} >= {DECODE_RTOL}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in leaves(params))
+    eng = ServingEngine(cfg, params, flags=flags, device=dev,
+                        **{k: SERVE[k] for k in ("max_slots", "max_len",
+                                                 "prompt_pad", "batching")})
+    reqs = serve_requests(cfg)
+
+    # events around each prefill call, host clock around each decode step
+    # (it ends in the argmax copy to the host, which synchronises)
+    prefill_ev, decode_ms = [], []
+    prefill_fn, decode_step = eng._prefill, eng._decode_step
+
+    def timed_prefill(p, batch):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = prefill_fn(p, batch)
+        e1.record()
+        prefill_ev.append((int(batch["tokens"].shape[1]), e0, e1))
+        return out
+
+    def timed_decode():
+        n = eng._n_active()
+        t = time.perf_counter()
+        decode_step()
+        decode_ms.append(((time.perf_counter() - t) * 1e3, n))
+    eng._prefill, eng._decode_step = timed_prefill, timed_decode
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem_before = torch.cuda.memory_allocated()
+    timers = [EventTimer(mod, (name,)) for name, (mod, _) in kernels.items()]
+    for mod, _ in kernels.values():
+        setattr(mod, "launches", 0)
+    t = time.perf_counter()
+    for tm in timers:
+        tm.__enter__()
+    try:
+        drive_doorbell(eng, reqs)
+    finally:
+        for tm in timers:
+            tm.__exit__(None, None, None)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t
+    launches = {name: mod.launches for name, (mod, _) in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    eng._prefill, eng._decode_step = prefill_fn, decode_step
+    kernel_ms = {name: tm.ms()[name] for tm, name in zip(timers, kernels)}
+    pre = [(n, a.elapsed_time(b)) for n, a, b in prefill_ev]
+    n_pre = len(pre)
+
+    out = {r.rid: r for r in eng.requests.values()}
+    violations = list(eng.mem.log.violations)
+    bad = [rid for rid, prompt, mx in reqs
+           if rid not in out or not out[rid].done
+           or len(out[rid].out_tokens) != mx]
+    if eng.completed != len(reqs) or violations or bad:
+        fail(f"serve {arch}: completed {eng.completed}/{len(reqs)}, "
+             f"violations {violations}, wrong token counts {bad}")
+    want = {name: per * n_pre for name, (_, per) in kernels.items()}
+    if launches != want or n_pre != len(reqs):
+        fail(f"serve {arch}: launches {launches} over {n_pre} prefills, "
+             f"expected {want}")
+    checks = route_checks(cfg, flags, prefill_fn, params, reqs[0][1],
+                          kernels)
+
+    tokens_out = sum(len(r.out_tokens) for r in out.values())
+    dec_tokens = sum(n for _, n in decode_ms)
+    dec_total = sum(ms for ms, _ in decode_ms)
+    pre_total = sum(ms for _, ms in pre)
+    kern_total = sum(kernel_ms.values())
+    row = {"phase": f"serve_{arch.split('-')[0]}", "card": card, "arch": arch,
+           "config": {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                      "n_heads": cfg.n_heads, "head_dim": cfg.head_dim,
+                      "d_ff": cfg.d_ff, "vocab_size": cfg.vocab_size,
+                      "params": n_params},
+           "flags": dataclasses.asdict(flags), "serve": SERVE, "reduced": [],
+           "init_s": init_s, "completed": eng.completed,
+           "violations": len(violations), "tokens_out": tokens_out,
+           "requests": [{"rid": rid, "prompt_len": len(p), "max_new": mx,
+                         "tokens": out[rid].out_tokens[:4]}
+                        for rid, p, mx in reqs],
+           "prefill_ms": pre, "decode_steps": len(decode_ms),
+           "decode_step_ms_median": statistics.median(
+               ms for ms, _ in decode_ms),
+           "decode_tokens_per_s": dec_tokens / (dec_total / 1e3),
+           "launches": launches,
+           "launches_per_prefill": {k: v // n_pre for k, v in launches.items()},
+           "kernel_ms_per_launch": {k: kernel_ms[k] / max(1, launches[k])
+                                    for k in kernel_ms},
+           "split_ms": {"prefill": pre_total, "prefill_kernels": kern_total,
+                        "prefill_rest": pre_total - kern_total,
+                        "decode": dec_total,
+                        "other_host": serve_s * 1e3 - pre_total - dec_total},
+           "serve_s": serve_s, "max_memory_allocated": peak,
+           "memory_allocated_before": mem_before,
+           "log_digest": eng.mem.log.digest(), "n_txs": eng.mem.log.n_txs,
+           "route_checks": checks, "decode_consistency_rel": decode_rel,
+           "decode_rtol": DECODE_RTOL}
+    emit(row)
+    if max(checks["per_layer_err_over_tol"].values()) >= 1.0 or \
+            checks["layers_checked"] != {n: per for n, (_, per)
+                                         in kernels.items()}:
+        fail(f"serve {arch}: per-layer kernel vs plain {checks}")
+    if not checks["logits_route_rel_fp32"] < ROUTE_RTOL_FP32:
+        fail(f"serve {arch}: kernel route vs plain route logits {checks}")
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 # --------------------------------------------------------------------- main
 def kernel_entry(name, source, replaces, main_row, rows, launches) -> dict:
     """``launches`` maps each main path that runs the kernel to its count
@@ -778,7 +1171,7 @@ def kernel_entry(name, source, replaces, main_row, rows, launches) -> dict:
             "peak": main_row["peak"],
             "main_path_shape": {k: main_row[k] for k in main_row
                                 if k in ("shape", "tile", "block", "dtype",
-                                         "causal", "window")},
+                                         "causal", "window", "chunk")},
             "shapes": rows}
 
 
@@ -792,14 +1185,18 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     card = phase_env()
     phase_build()
-    mm_rows, fa_rows, dkdv_rows, dq_rows = phase_kernels()
+    mm_rows, fa_rows, dkdv_rows, dq_rows, wkv_rows, ssd_rows = phase_kernels()
     mm_launches = phase_coverify_matmul(card, mm_rows)
     fa_launches = phase_coverify_flash(card, fa_rows)
     phase_golden()
     train = phase_train_llama(card)
-    if mm_launches < 1 or fa_launches < 1 or min(train.values()) < 1:
+    rwkv = phase_serve(card, "rwkv6-7b")
+    zamba = phase_serve(card, "zamba2-2.7b")
+    if mm_launches < 1 or fa_launches < 1 or min(train.values()) < 1 or \
+            min(rwkv.values()) < 1 or min(zamba.values()) < 1:
         fail(f"main path missed a kernel: matmul={mm_launches} "
-             f"flash={fa_launches} train={train}")
+             f"flash={fa_launches} train={train} serve_rwkv6={rwkv} "
+             f"serve_zamba2={zamba}")
     src = "src/repro_torch/kernels/csrc/"
     ref = "src/repro/kernels/"
     emit({"kernels": [
@@ -811,7 +1208,8 @@ def main() -> int:
                      ref + "flash_attention/kernel.py:109",
                      fa_rows[FA_MAIN], fa_rows,
                      {"coverify_flash": fa_launches,
-                      "train_llama": train["flash_fwd"]}),
+                      "train_llama": train["flash_fwd"],
+                      "serve_zamba2": zamba["flash_fwd"]}),
         kernel_entry("flash_dkdv", src + "flash_bwd.cu",
                      ref + "flash_attention/kernel.py:186",
                      dkdv_rows[BWD_MAIN], dkdv_rows,
@@ -820,6 +1218,14 @@ def main() -> int:
                      ref + "flash_attention/kernel.py:256",
                      dq_rows[BWD_MAIN], dq_rows,
                      {"train_llama": train["flash_dq"]}),
+        kernel_entry("ssd_scan", src + "ssd_scan.cu",
+                     ref + "mamba2_scan/kernel.py:84",
+                     ssd_rows[SSD_MAIN], ssd_rows,
+                     {"serve_zamba2": zamba["ssd_scan"]}),
+        kernel_entry("wkv_scan", src + "wkv_scan.cu",
+                     ref + "rwkv6_wkv/kernel.py:62",
+                     wkv_rows[WKV_MAIN], wkv_rows,
+                     {"serve_rwkv6": rwkv["wkv_scan"]}),
     ]})
     emit({"phase": "done", "card": card,
           "seconds": time.perf_counter() - t_start})

@@ -30,6 +30,20 @@ def to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
 
+def on_cpu(name: str, *ts: torch.Tensor) -> bool:
+    """The route of a kernel wrapper: True for CPU tensors (its plain
+    version), False for CUDA tensors (its kernel); raises for any other
+    device or for operands on different devices."""
+    dev = ts[0].device
+    if any(t.device != dev for t in ts):
+        raise ValueError(f"{name}: operands on different devices")
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, not {dev}")
+    return False
+
+
 @contextlib.contextmanager
 def true_fp32() -> Iterator[None]:
     """Float32 matmuls on the card without TF32 inside the body; the

@@ -66,12 +66,25 @@ def bridge_state_from_reference(state: Dict[str, Any]) -> Dict[str, Any]:
     }
 
 
+def _tensor(arr: Any, dev: torch.device) -> torch.Tensor:
+    """A copy of one numpy array as a tensor on ``dev``; bfloat16 arrays
+    (numpy's ``ml_dtypes`` extension type, which ``torch.from_numpy``
+    does not take) go over bit for bit as 16-bit words."""
+    arr = np.array(arr)                                      # copies
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(
+            torch.bfloat16).to(dev)
+    return torch.from_numpy(arr).to(dev)
+
+
 def params_from_reference(tree: Any,
                           device: Union[str, torch.device] = "cuda") -> Any:
     """A nested dict / list / tuple of numpy arrays as the same nesting of
-    tensors on ``device``.  Leaf paths are those of the port's equivalence
-    flattener (``core/equivalence.py``), so a converted tree compares leaf
-    for leaf against the arrays it came from."""
+    tensors on ``device`` (``ssm`` and ``hybrid`` trees included: the
+    hybrid's stacked mamba leaves keep their ``(n_super, per)`` axes).
+    Leaf paths are those of the port's equivalence flattener
+    (``core/equivalence.py``), so a converted tree compares leaf for leaf
+    against the arrays it came from."""
     dev = resolve_device(device)
 
     def walk(node: Any) -> Any:
@@ -81,9 +94,19 @@ def params_from_reference(tree: Any,
             return {k: walk(v) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return type(node)(walk(v) for v in node)
-        return torch.from_numpy(np.array(node)).to(dev)     # copies
+        return _tensor(node, dev)
 
     return walk(tree)
+
+
+def cache_from_reference(cache: Dict[str, Any],
+                         device: Union[str, torch.device] = "cuda"
+                         ) -> Dict[str, Any]:
+    """The reference's prefill / decode cache (``make_prefill_fn``,
+    ``init_cache``) as numpy arrays -> the port's cache on ``device``:
+    the same keys, shapes and dtypes (``conv_tails`` stays a tuple), so
+    the port's ``make_decode_fn`` continues from the reference's prefill."""
+    return params_from_reference(cache, device)
 
 
 def train_state_from_reference(state: Dict[str, Any],

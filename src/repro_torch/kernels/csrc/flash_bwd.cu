@@ -378,6 +378,7 @@ int dispatch(int D, int is_bf16, const Args& a) {
     FB_CASE(16)
     FB_CASE(32)
     FB_CASE(64)
+    FB_CASE(80)
     FB_CASE(128)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -390,7 +391,7 @@ int dispatch(int D, int is_bf16, const Args& a) {
 // Both launch on `stream`, do not synchronise and allocate nothing.
 // q/dout (B,H,Sq,D) and k/v (B,KH,Skv,D) of one type (is_bf16 selects bf16,
 // else fp32); lse/delta (B,H,Sq) fp32; outputs fp32: dk/dv (B,KH,Skv,D),
-// dq (B,H,Sq,D).  D must be 16, 32, 64 or 128 and KH must divide H.
+// dq (B,H,Sq,D).  D must be 16, 32, 64, 80 or 128 and KH must divide H.
 // Return cudaGetLastError() (or the error of the shared-memory opt-in).
 extern "C" int flash_dkdv(const void* q, const void* k, const void* v,
                           const void* dout, const void* lse, const void* delta,

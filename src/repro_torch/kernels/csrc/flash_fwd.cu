@@ -253,6 +253,7 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
     case 16:  return launch<T, 16>(q, k, v, o, lse, B, H, KH, Sq, Skv, causal, window, scale, s);
     case 32:  return launch<T, 32>(q, k, v, o, lse, B, H, KH, Sq, Skv, causal, window, scale, s);
     case 64:  return launch<T, 64>(q, k, v, o, lse, B, H, KH, Sq, Skv, causal, window, scale, s);
+    case 80:  return launch<T, 80>(q, k, v, o, lse, B, H, KH, Sq, Skv, causal, window, scale, s);
     case 128: return launch<T, 128>(q, k, v, o, lse, B, H, KH, Sq, Skv, causal, window, scale, s);
     default:  return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -262,7 +263,8 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
 
 // Launches on `stream`, does not synchronise, allocates nothing.
 // q/out (B,H,Sq,D), k/v (B,KH,Skv,D), lse (B,H,Sq) fp32; is_bf16 selects the
-// type of q, k, v and out.  D must be 16, 32, 64 or 128 and KH must divide H.
+// type of q, k, v and out.  D must be 16, 32, 64, 80 or 128 and KH must
+// divide H.
 // Returns cudaGetLastError() (or the error of the shared-memory opt-in).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* out, void* lse, int B, int H, int KH, int Sq,

@@ -24,12 +24,13 @@ from typing import Tuple
 
 import torch
 
+from repro_torch._device import on_cpu as _on_cpu
 from repro_torch._device import true_fp32
 from repro_torch.kernels import _build
 
 NEG = -1.0e30
 _DTYPES = (torch.float32, torch.bfloat16)
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 80, 128)
 
 # numbers of CUDA kernel launches made by ``flash_fwd``, ``flash_dkdv`` and
 # ``flash_dq`` (plain integers; a caller that wants a per-run count sets
@@ -222,19 +223,6 @@ def _fn(name: str):
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
-
-
-def _on_cpu(name: str, *ts: torch.Tensor) -> bool:
-    """True for CPU tensors (plain version); raises for a device the
-    kernels do not run on, or for operands on different devices."""
-    dev = ts[0].device
-    if any(t.device != dev for t in ts):
-        raise ValueError(f"{name}: operands on different devices")
-    if dev.type == "cpu":
-        return True
-    if dev.type != "cuda":
-        raise ValueError(f"{name} runs on cuda or cpu tensors, not {dev}")
-    return False
 
 
 def _check_kernel_operands(name: str, D: int, window: int, *ts: torch.Tensor

@@ -1,0 +1,107 @@
+"""The RWKV-6 WKV recurrence — a hand-written CUDA kernel
+(``csrc/wkv_scan.cu``) and its plain PyTorch version.
+
+Layout: r/k/v/w (B, L, H, K) with w the per-step decay in (0, 1), u (H, K);
+results y (B, L, H, K) fp32 and the final state (B, H, K, K) fp32, the
+recurrence starting from a zero state.  ``wkv_scan`` launches the kernel
+for CUDA tensors (or raises) and takes ``wkv_scan_plain`` only for tensors
+that lie on the CPU.  ``chunk``/``hb`` keep the reference's clamping and
+divisibility contract, since they define the modeled burst list
+(``ops.transactions``); the kernel walks all L steps in one loop, which
+changes nothing but fp32 rounding.  The kernel has no backward (neither
+has the reference's): CUDA inputs that require a gradient are refused.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from repro_torch._device import on_cpu, true_fp32
+from repro_torch.kernels import _build
+
+_HEAD_SIZES = (16, 32, 64, 128)
+
+# number of CUDA kernel launches made by ``wkv_scan`` (a plain integer; a
+# caller that wants a per-run count sets it to 0 first)
+launches = 0
+
+
+def _shapes(r, k, v, w, u, chunk: int, hb: int):
+    if r.dim() != 4 or not (r.shape == k.shape == v.shape == w.shape):
+        raise ValueError(f"wkv_scan takes r/k/v/w of one shape (B,L,H,K), got "
+                         f"{[tuple(t.shape) for t in (r, k, v, w)]}")
+    B, L, H, K = r.shape
+    if tuple(u.shape) != (H, K):
+        raise ValueError(f"u must be (H,K) = {(H, K)}, got {tuple(u.shape)}")
+    cl = min(chunk, L)
+    hb = min(hb, H)
+    assert L % cl == 0 and H % hb == 0
+    return B, L, H, K, cl, hb
+
+
+@true_fp32()
+def wkv_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   w: torch.Tensor, u: torch.Tensor, *, chunk: int = 16,
+                   hb: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel body of the reference in plain tensor ops: chunk by
+    chunk, the exact per-step recurrence (``kv = k v^T``,
+    ``out = sum_k r (S + u kv)``, ``S = w S + kv``) on an fp32 state carried
+    across chunks, batched over (B, H)."""
+    B, L, H, K, cl, hb = _shapes(r, k, v, w, u, chunk, hb)
+    rf, kf, vf, wf = (a.float() for a in (r, k, v, w))
+    uf = u.float()[None, :, :, None]                           # (1,H,K,1)
+    state = torch.zeros((B, H, K, K), dtype=torch.float32, device=r.device)
+    y = torch.empty((B, L, H, K), dtype=torch.float32, device=r.device)
+    for c in range(L // cl):
+        for t in range(c * cl, (c + 1) * cl):
+            kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]    # (B,H,K,V)
+            y[:, t] = (rf[:, t, :, :, None] * (state + uf * kv)).sum(dim=2)
+            state = wf[:, t, :, :, None] * state + kv
+    return y, state
+
+
+def _fn():
+    fn = _build.load("wkv_scan").wkv_scan
+    if not fn.argtypes:
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, u: torch.Tensor, *, chunk: int = 16,
+             hb: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """r/k/v/w (B,L,H,K); u (H,K) -> (y (B,L,H,K) fp32, final state
+    (B,H,K,K) fp32).  CUDA tensors go through the hand-written kernel; CPU
+    tensors through ``wkv_scan_plain``."""
+    global launches
+    B, L, H, K, cl, hb = _shapes(r, k, v, w, u, chunk, hb)
+    ts = (r, k, v, w, u)
+    if on_cpu("wkv_scan", *ts):
+        return wkv_scan_plain(r, k, v, w, u, chunk=chunk, hb=hb)
+    if any(t.requires_grad for t in ts) and torch.is_grad_enabled():
+        raise RuntimeError("wkv_scan has no backward kernel (nor has the "
+                           "reference's): inputs must not require a gradient")
+    if any(t.dtype != torch.float32 for t in ts):
+        raise TypeError(f"wkv_scan kernel takes float32 r/k/v/w/u, got "
+                        f"{[t.dtype for t in ts]}")
+    if K not in _HEAD_SIZES:
+        raise ValueError(f"kernel is built for head sizes {_HEAD_SIZES}, "
+                         f"got {K}")
+    if not all(t.is_contiguous() for t in ts) or any(
+            t.data_ptr() % 16 for t in (r, k, w)):
+        raise ValueError("kernel takes contiguous tensors, r/k/w 16-byte "
+                         "aligned")
+    with torch.cuda.device(r.device):
+        y = torch.empty((B, L, H, K), dtype=torch.float32, device=r.device)
+        st = torch.empty((B, H, K, K), dtype=torch.float32, device=r.device)
+        err = _fn()(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                    u.data_ptr(), y.data_ptr(), st.data_ptr(), B, L, H, K,
+                    torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"wkv_scan launch refused: CUDA error {err}")
+    launches += 1
+    return y, st

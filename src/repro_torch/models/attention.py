@@ -11,6 +11,8 @@
                    ``kernels/flash_attention/ops.py`` (their plain versions
                    on CPU tensors).
 
+``decode_attention`` is the one-query masked einsum of the decode step.
+
 GQA is handled by grouping query heads over KV heads (no KV materialised
 repeat).  Masking is position-based: callers pass q/kv position arrays;
 invalid KV slots are marked with position -1.  Where the reference asks for
@@ -175,6 +177,23 @@ def flash_attention(spec: AttnSpec, q, k, v, q_pos, kv_pos):
     return _ChunkedFlash.apply(q, k, v, q_pos, kv_pos, spec)
 
 
+def decode_attention(q, k, v, *, q_pos, kv_pos, window: int = 0):
+    """Decode attention (Sq == 1): a plain masked einsum — no S^2 term
+    exists.  q (B,1,H,D); k/v (B,S,KH,D); q_pos (B,1); kv_pos (B,S)."""
+    B, Sq, H, D = q.shape
+    KH = k.shape[2]
+    G = H // KH
+    qg = q.reshape(B, Sq, KH, G, D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) / np.sqrt(D)
+    spec = AttnSpec(causal=True, window=window)
+    mask = _tile_mask(spec, q_pos, kv_pos)[:, None, None]
+    s = torch.where(mask, s, torch.full_like(s, _NEG))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(mask, p, torch.zeros_like(p))
+    o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).float(), v.float())
+    return o.reshape(B, Sq, H, D).to(q.dtype)
+
+
 def _divisor_chunk(want: int, length: int) -> int:
     c = min(want, length)
     while length % c:
@@ -195,6 +214,12 @@ def attention(q, k, v, *, impl: str, spec: AttnSpec, q_pos, kv_pos):
         return flash_attention(spec, q, k, v, q_pos, kv_pos)
     if impl == "pallas":
         from repro_torch.kernels.flash_attention import ops as fa_ops
+        # the reference's 512-row blocks, clamped to divisors of the lengths
+        # (the same blocks wherever the reference's contract holds); they
+        # set the burst model and the plain version's tiling, while the
+        # CUDA kernels tile on their own
         return fa_ops.flash_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
-                                      causal=spec.causal, window=spec.window)
+                                      causal=spec.causal, window=spec.window,
+                                      bq=_divisor_chunk(512, q.shape[1]),
+                                      bk=_divisor_chunk(512, k.shape[1]))
     raise ValueError(f"unknown attention impl {impl!r}")

@@ -27,3 +27,10 @@ def make_train_batch(cfg: ModelConfig, B: int, S: int,
     batch["labels"] = torch.randint(0, V, (B, S), generator=gen, device=dev,
                                     dtype=torch.int32)
     return batch
+
+
+def make_prefill_batch(cfg: ModelConfig, B: int, S: int,
+                       gen: torch.Generator) -> dict:
+    b = make_train_batch(cfg, B, S, gen)
+    b.pop("labels")
+    return b

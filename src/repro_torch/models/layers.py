@@ -62,6 +62,12 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
     return (y * w.float()).to(x.dtype)
 
 
+def head_rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
+                  ) -> torch.Tensor:
+    """Per-head RMS norm; x (..., H, K), w (H, K)."""
+    return rms_norm(x, w, eps)
+
+
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------

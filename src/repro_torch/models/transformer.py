@@ -1,21 +1,32 @@
-"""Model assembly — the port of ``repro.models.transformer`` for training
-the dense family.
+"""Model assembly — the port of ``repro.models.transformer`` for the dense
+family (training, prefill, decode) and the ssm (rwkv6) and hybrid (zamba2)
+families (forward, prefill, decode).
 
-Layer weights stay stacked on a leading ``L`` axis, exactly as the
-reference's ``init_params`` makes them, so a parameter tree converted from
-the reference is a leaf-for-leaf copy, checkpoint leaf paths are the same,
-and gradients accumulate into the stacked leaves.  The reference's
-``lax.scan`` over the stack becomes a loop over ``unbind(0)`` views (whose
-backward stacks the per-layer gradients in one pass), and ``jax.checkpoint``
-(``flags.remat``) becomes ``torch.utils.checkpoint`` around each layer body:
-the forward of every layer runs again in the backward, so under
-``attn_impl="pallas"`` one step launches the attention forward kernel 2·L
-times and each backward kernel L times.
+Layer weights stay stacked on leading axes exactly as the reference's
+``init_params`` makes them (``L`` for dense and ssm, ``(n_super, per)`` for
+the hybrid's mamba layers), so a parameter tree converted from the
+reference is a leaf-for-leaf copy, checkpoint leaf paths are the same, and
+gradients accumulate into the stacked leaves.  The reference's
+``lax.scan`` over the stack becomes a Python loop over the layers, and
+``jax.checkpoint`` (``flags.remat``) becomes ``torch.utils.checkpoint``
+around each dense layer of a training forward: the forward of every layer
+runs again in the backward, so under ``attn_impl="pallas"`` one step
+launches the attention forward kernel 2·L times and each backward kernel
+L times.
+
+Three entry points, as in the reference: ``make_loss_fn`` (dense only:
+the ssm and hybrid scan kernels have no backward, in the reference either),
+``make_prefill_fn`` -> (last logits, cache) and ``make_decode_fn`` (one
+token with the cache).  The prefill of an ssm / hybrid model starts every
+scan from no state, which routes it through the WKV-6 / SSD scan kernels
+(``models/rwkv6.py``, ``models/mamba2.py``).  Prefill and decode run
+without autograd.  Decode returns a new cache and never writes into the
+one it was given (it copies each cache leaf it updates once per call), so
+a caller may keep the old one, as with the reference's immutable arrays.
 
 Single device: the reference's sharding context (``ShardCtx``) has no
-counterpart yet, and ``ctx`` must be ``None``.  Families other than dense,
-and the prefill / decode / cache entry points, are not ported yet
-(ROADMAP queue A, items 9 and 10).
+counterpart yet, and ``ctx`` must be ``None``.  The moe, vlm and audio
+families are not ported yet (ROADMAP queue A, item 9).
 """
 from __future__ import annotations
 
@@ -23,19 +34,20 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch._tree import tree_map
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import layers
-from repro_torch.models.attention import AttnSpec, attention
+from repro_torch.models import layers, mamba2, rwkv6
+from repro_torch.models.attention import AttnSpec, attention, decode_attention
 
 
 @dataclasses.dataclass(frozen=True)
 class RunFlags:
-    """The reference's run-time knobs that the dense training path reads
-    (its MoE, RWKV and sharding knobs come with those items; remat is
-    always of whole layers, the reference's ``remat_policy="full"``)."""
+    """The reference's run-time knobs that the ported paths read (its MoE
+    and sharding knobs come with those items; remat is always of whole
+    layers, the reference's ``remat_policy="full"``)."""
     attn_impl: str = "chunked"          # naive | chunked | pallas
     q_chunk: int = 512
     kv_chunk: int = 512
@@ -43,20 +55,28 @@ class RunFlags:
     microbatches: int = 1               # grad-accumulation microbatches
     remat: bool = True
     compute_dtype: str = "bfloat16"     # bfloat16 | float32 (oracle mode)
+    wkv_chunk: int = 16                 # RWKV WKV chunk length
 
 
-_NOT_PORTED = ("the port trains the dense family only; {what} waits for "
-               "ROADMAP queue A item 9")
+_FAMILIES = ("dense", "ssm", "hybrid")
 
 
-def _check(cfg: ModelConfig, ctx: Any = None) -> None:
+def _check(cfg: ModelConfig, ctx: Any = None, *, train: bool = False) -> None:
     if ctx is not None:
         raise NotImplementedError(
             "the port runs on one device: ctx (a sharding context) must be "
             "None until the multi-device item of ROADMAP queue A item 12")
-    if cfg.family != "dense" or cfg.moe is not None or cfg.frontend != "tokens":
-        raise NotImplementedError(_NOT_PORTED.format(
-            what=f"family {cfg.family!r} (arch {cfg.arch})"))
+    if cfg.family not in _FAMILIES or cfg.moe is not None \
+            or cfg.frontend != "tokens":
+        raise NotImplementedError(
+            f"the port runs the dense, ssm and hybrid families; family "
+            f"{cfg.family!r} (arch {cfg.arch}) waits for ROADMAP queue A "
+            f"item 9")
+    if train and cfg.family != "dense":
+        raise NotImplementedError(
+            f"training of family {cfg.family!r} (arch {cfg.arch}) is not "
+            f"ported: its scan kernel has no backward, in the reference "
+            f"either (ROADMAP queue A item 9)")
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -68,6 +88,11 @@ def cast_params(params, dtype=torch.bfloat16):
     masters get fp32 gradients (the cast is part of the autograd graph)."""
     return tree_map(lambda a: a.to(dtype) if a.dtype == torch.float32 else a,
                     params)
+
+
+def _at(tree, *idx):
+    """The tree of views ``leaf[idx]`` (one layer of a stacked tree)."""
+    return tree_map(lambda a: a[idx], tree)
 
 
 # ---------------------------------------------------------------------------
@@ -100,13 +125,35 @@ def init_params(cfg: ModelConfig, gen: Optional[torch.Generator],
     if not cfg.tie_embeddings:
         params["lm_head"] = layers.dense_init(gen, d, Vp, dtype)
     L = cfg.n_layers
-    params["blocks"] = {
-        "attn": _attn_init(gen, cfg, dtype, pre=(L,)),
-        "ln1": ones(L, d),
-        "ln2": ones(L, d),
-        "mlp": layers.mlp_init(gen, d, cfg.d_ff, cfg.mlp_type, dtype,
-                               shape_prefix=(L,)),
-    }
+    if cfg.family == "dense":
+        params["blocks"] = {
+            "attn": _attn_init(gen, cfg, dtype, pre=(L,)),
+            "ln1": ones(L, d),
+            "ln2": ones(L, d),
+            "mlp": layers.mlp_init(gen, d, cfg.d_ff, cfg.mlp_type, dtype,
+                                   shape_prefix=(L,)),
+        }
+    elif cfg.family == "hybrid":
+        n_super = L // cfg.attn_period
+        per = cfg.attn_period - 1
+        assert n_super * cfg.attn_period == L
+        params["blocks"] = {
+            "mamba": mamba2.mamba2_init(gen, cfg, dtype,
+                                        shape_prefix=(n_super, per)),
+            "mamba_ln": ones(n_super, per, d),
+            "shared": {
+                "attn": _attn_init(gen, cfg, dtype),
+                "mlp": layers.mlp_init(gen, d, cfg.d_ff, cfg.mlp_type, dtype),
+                "ln1": ones(d),
+                "ln2": ones(d),
+            },
+        }
+    else:                                                       # ssm
+        params["blocks"] = {
+            "rwkv": rwkv6.rwkv6_init(gen, cfg, dtype, shape_prefix=(L,)),
+            "ln1": ones(L, d),
+            "ln2": ones(L, d),
+        }
     return params
 
 
@@ -147,7 +194,8 @@ def _qkv(cfg, w, x, pos):
     return q, k, v
 
 
-def attn_block(cfg, flags: RunFlags, ctx, w, ln, x, pos, *, window=0):
+def attn_block(cfg, flags: RunFlags, ctx, w, ln, x, pos, *, window=0,
+               return_kv=False):
     h = layers.rms_norm(x, ln, cfg.norm_eps)
     q, k, v = _qkv(cfg, w, h, pos)
     spec = AttnSpec(causal=cfg.causal, window=window, q_chunk=flags.q_chunk,
@@ -157,7 +205,20 @@ def attn_block(cfg, flags: RunFlags, ctx, w, ln, x, pos, *, window=0):
     o = attention(q, k, v, impl=flags.attn_impl, spec=spec, q_pos=pos,
                   kv_pos=pos)
     B, S, _ = x.shape
-    return x + o.reshape(B, S, cfg.d_q) @ w["wo"]
+    out = x + o.reshape(B, S, cfg.d_q) @ w["wo"]
+    return (out, (k, v)) if return_kv else out
+
+
+def attn_block_decode(cfg, w, ln, x, q_pos, kcache, vcache, kv_pos, *,
+                      window=0):
+    """x (B,1,d); kcache/vcache (B,S,KH,hd) already containing this token."""
+    h = layers.rms_norm(x, ln, cfg.norm_eps)
+    B = x.shape[0]
+    q = (h @ w["wq"]).reshape(B, 1, cfg.n_heads, cfg.head_dim)
+    q = layers.apply_rope(q, q_pos, cfg.rope)
+    o = decode_attention(q, kcache, vcache, q_pos=q_pos, kv_pos=kv_pos,
+                         window=window)
+    return x + o.reshape(B, 1, cfg.d_q) @ w["wo"]
 
 
 def mlp_block(cfg, w, ln, x):
@@ -178,9 +239,88 @@ def _unstack(tree, L: int):
     return list(tree.unbind(0))
 
 
+# ---------------------------------------------------------------------------
+# Full-sequence forward (train / prefill) per family
+# ---------------------------------------------------------------------------
+
+
+def _forward_dense(cfg, flags, bl, x, pos, collect_cache):
+    kvs = []
+    for wl in _unstack(bl, cfg.n_layers):
+        if collect_cache:
+            x, kv = attn_block(cfg, flags, None, wl["attn"], wl["ln1"], x,
+                               pos, return_kv=True)
+            x = mlp_block(cfg, wl["mlp"], wl["ln2"], x)
+            kvs.append(kv)
+        elif flags.remat:
+            x = checkpoint(_layer, cfg, flags, pos, x, wl, use_reentrant=False)
+        else:
+            x = _layer(cfg, flags, pos, x, wl)
+    if not collect_cache:
+        return x, None
+    return x, {"k": torch.stack([k for k, _ in kvs]),         # (L,B,S,KH,hd)
+               "v": torch.stack([v for _, v in kvs])}
+
+
+def _forward_hybrid(cfg, flags, bl, x, pos, collect_cache):
+    shared = bl["shared"]
+    n_super, per = bl["mamba_ln"].shape[:2]
+    states, tails, win_k, win_v = [], [], [], []
+    for si in range(n_super):
+        for pi in range(per):
+            h = layers.rms_norm(x, bl["mamba_ln"][si, pi], cfg.norm_eps)
+            y, (st, tl) = mamba2.mamba2_forward(_at(bl["mamba"], si, pi), h,
+                                                cfg)
+            x = x + y
+            if collect_cache:
+                states.append(st)
+                tails.append(tl)
+        if collect_cache:
+            x, (k, v) = attn_block(cfg, flags, None, shared["attn"],
+                                   shared["ln1"], x, pos,
+                                   window=cfg.attn_window, return_kv=True)
+        else:
+            x = attn_block(cfg, flags, None, shared["attn"], shared["ln1"], x,
+                           pos, window=cfg.attn_window)
+        x = mlp_block(cfg, shared["mlp"], shared["ln2"], x)
+        if collect_cache:
+            W = min(cfg.attn_window or x.shape[1], x.shape[1])
+            win_k.append(k[:, -W:])
+            win_v.append(v[:, -W:])
+    if not collect_cache:
+        return x, None
+    grid = lambda ts: torch.stack(ts).reshape((n_super, per) + ts[0].shape)
+    return x, {"mamba_state": grid(states),
+               "conv_tails": tuple(grid([t[i] for t in tails])
+                                   for i in range(3)),
+               "win_k": torch.stack(win_k), "win_v": torch.stack(win_v)}
+
+
+def _forward_ssm(cfg, flags, bl, x, collect_cache):
+    parts = []
+    for li in range(cfg.n_layers):
+        w = _at(bl["rwkv"], li)
+        h = layers.rms_norm(x, bl["ln1"][li], cfg.norm_eps)
+        shift0 = torch.zeros((h.shape[0], 1, h.shape[2]), dtype=h.dtype,
+                             device=h.device)
+        # state None: a zero state, through the WKV-6 kernel
+        y, tshift, tstate = rwkv6.time_mix(w["tmix"], h, cfg, shift0, None,
+                                           chunk=flags.wkv_chunk)
+        x = x + y
+        h = layers.rms_norm(x, bl["ln2"][li], cfg.norm_eps)
+        y, cshift = rwkv6.channel_mix(w["cmix"], h, shift0)
+        x = x + y
+        if collect_cache:
+            parts.append((tshift, tstate, cshift))
+    if not collect_cache:
+        return x, None
+    return x, {name: torch.stack([p[i] for p in parts]) for i, name in
+               enumerate(("tmix_shift", "wkv_state", "cmix_shift"))}
+
+
 def forward(cfg: ModelConfig, params, batch: dict, flags: RunFlags,
-            ctx: Any = None):
-    """Returns (hidden (B,S,d), aux_losses, None)."""
+            ctx: Any = None, *, collect_cache: bool = False):
+    """Returns (hidden (B,S,d), aux_losses, cache_parts or None)."""
     _check(cfg, ctx)
     cdt = getattr(torch, flags.compute_dtype)
     ids = batch["tokens"]
@@ -189,21 +329,23 @@ def forward(cfg: ModelConfig, params, batch: dict, flags: RunFlags,
                        device=ids.device).expand(B, S)
     x = embed_lookup(cfg, params, ids).to(cdt)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for wl in _unstack(params["blocks"], cfg.n_layers):
-        if flags.remat:
-            x = checkpoint(_layer, cfg, flags, pos, x, wl, use_reentrant=False)
-        else:
-            x = _layer(cfg, flags, pos, x, wl)
-    return x, aux, None
+    bl = params["blocks"]
+    if cfg.family == "dense":
+        x, cache = _forward_dense(cfg, flags, bl, x, pos, collect_cache)
+    elif cfg.family == "hybrid":
+        x, cache = _forward_hybrid(cfg, flags, bl, x, pos, collect_cache)
+    else:
+        x, cache = _forward_ssm(cfg, flags, bl, x, collect_cache)
+    return x, aux, cache
 
 
 # ---------------------------------------------------------------------------
-# Loss (train)
+# Loss (train), prefill, decode factories
 # ---------------------------------------------------------------------------
 
 
 def make_loss_fn(cfg: ModelConfig, flags: RunFlags, ctx: Any = None):
-    _check(cfg, ctx)
+    _check(cfg, ctx, train=True)
 
     def loss_fn(params, batch):
         params = cast_params(params, getattr(torch, flags.compute_dtype))
@@ -213,3 +355,233 @@ def make_loss_fn(cfg: ModelConfig, flags: RunFlags, ctx: Any = None):
                                                batch.get("loss_mask"))
         return loss + 0.01 * aux, {"loss": loss, "aux": aux}
     return loss_fn
+
+
+def make_prefill_fn(cfg: ModelConfig, flags: RunFlags, ctx: Any,
+                    max_len: int):
+    """Returns fn(params, batch) -> (last_logits (B,Vp), cache dict)."""
+    _check(cfg, ctx)
+
+    @torch.no_grad()
+    def prefill(params, batch):
+        params = cast_params(params, getattr(torch, flags.compute_dtype))
+        x, _, parts = forward(cfg, params, batch, flags, ctx,
+                              collect_cache=True)
+        logits = lm_logits(cfg, params, x[:, -1:], ctx)[:, 0]
+        B, S = x.shape[0], x.shape[1]
+        return logits, _grow_cache(cfg, parts, B, S, max_len)
+    return prefill
+
+
+def _grow_cache(cfg, parts, B, S, max_len):
+    """Pad prefill-collected cache parts out to max_len and add bookkeeping."""
+    out = dict(parts or {})
+    dev = next(iter(out.values())).device if out else None
+    if "k" in out:                                            # dense
+        pad = max_len - S
+        assert pad >= 0, (S, max_len)
+        out["k"] = F.pad(out["k"], (0, 0, 0, 0, 0, pad))
+        out["v"] = F.pad(out["v"], (0, 0, 0, 0, 0, pad))
+        out["kv_pos"] = torch.cat([
+            torch.arange(S, dtype=torch.int32, device=dev).expand(B, S),
+            torch.full((B, pad), -1, dtype=torch.int32, device=dev)], dim=1)
+    if cfg.family == "hybrid":
+        W = out["win_k"].shape[2]
+        # Align the window cache to the decode ring-slot convention
+        # slot = pos % W: the collected slice holds positions S-W..S-1 at
+        # indices 0..W-1, so roll by (S - W) % W to place p at p % W.
+        shift = (S - W) % W
+        out["win_k"] = torch.roll(out["win_k"], shift, dims=2)
+        out["win_v"] = torch.roll(out["win_v"], shift, dims=2)
+        out["win_pos"] = torch.roll(
+            torch.arange(S - W, S, dtype=torch.int32, device=dev)
+            .expand(out["win_k"].shape[:3]), shift, dims=2)
+    out["pos"] = torch.full((B,), S, dtype=torch.int32, device=dev)
+    return out
+
+
+def init_cache(cfg: ModelConfig, B: int, max_len: int, dtype=torch.bfloat16,
+               device=None) -> dict:
+    """Empty cache for serving."""
+    _check(cfg)
+    z = lambda shape, dt=dtype: torch.zeros(shape, dtype=dt, device=device)
+    i32 = torch.int32
+    pos = z((B,), i32)
+    if cfg.family == "dense":
+        L, KH, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+        return {
+            "k": z((L, B, max_len, KH, hd)),
+            "v": z((L, B, max_len, KH, hd)),
+            "kv_pos": torch.full((B, max_len), -1, dtype=i32, device=device),
+            "pos": pos,
+        }
+    if cfg.family == "hybrid":
+        n_super = cfg.n_layers // cfg.attn_period
+        per = cfg.attn_period - 1
+        d_in, H, Pd, N = mamba2.dims(cfg)
+        cw = cfg.ssm.conv_width
+        W = min(cfg.attn_window or max_len, max_len)
+        return {
+            "mamba_state": z((n_super, per, B, H, Pd, N), torch.float32),
+            "conv_tails": (z((n_super, per, B, cw - 1, d_in)),
+                           z((n_super, per, B, cw - 1, N)),
+                           z((n_super, per, B, cw - 1, N))),
+            "win_k": z((n_super, B, W, cfg.n_kv_heads, cfg.head_dim)),
+            "win_v": z((n_super, B, W, cfg.n_kv_heads, cfg.head_dim)),
+            "win_pos": torch.full((n_super, B, W), -1, dtype=i32,
+                                  device=device),
+            "pos": pos,
+        }
+    L, H, K = cfg.n_layers, cfg.n_heads, cfg.rwkv.head_size    # ssm
+    d = cfg.d_model
+    return {
+        "tmix_shift": z((L, B, 1, d)),
+        "wkv_state": z((L, B, H, K, K), torch.float32),
+        "cmix_shift": z((L, B, 1, d)),
+        "pos": pos,
+    }
+
+
+_CACHE_BATCH_AXIS = {
+    "k": 1, "v": 1, "cross_k": 1, "cross_v": 1, "kv_pos": 0, "pos": 0,
+    "mamba_state": 2, "conv_tails": 2, "win_k": 1, "win_v": 1, "win_pos": 1,
+    "tmix_shift": 1, "wkv_state": 1, "cmix_shift": 1,
+}
+# what a window slot that the prefill left empty holds
+_WINDOW_FILL = {"win_k": 0, "win_v": 0, "win_pos": -1}
+
+
+def _insert_leaf(name: str, big: torch.Tensor, small: torch.Tensor,
+                 slot: int) -> None:
+    ax = _CACHE_BATCH_AXIS.get(name, 0)
+    dst = big.select(ax, slot)
+    src = small.select(ax, 0).to(big.dtype)
+    if name in _WINDOW_FILL and src.shape[1] < dst.shape[1]:
+        # a prompt shorter than the window (and than max_len): its prefill
+        # window holds positions 0..S-1 at indices 0..S-1 — the decode
+        # ring slots p % W for the serving cache's longer window W.  The
+        # reference's cache_insert cannot broadcast the short window into
+        # the long one and fails here.
+        dst.fill_(_WINDOW_FILL[name])
+        dst = dst.narrow(1, 0, src.shape[1])
+    dst.copy_(src)
+
+
+def cache_insert(cache: dict, single: dict, slot: int) -> dict:
+    """Insert a batch-1 cache (from prefill) into slot ``slot`` of a
+    batched cache — the continuous-batching primitive of serving.  Writes
+    the slot of ``cache`` in place (each leaf keeps its type) and returns
+    ``cache``."""
+    for name, big in cache.items():
+        small = single[name]
+        for b, s in (zip(big, small) if isinstance(big, tuple)
+                     else ((big, small),)):
+            _insert_leaf(name, b, s, slot)
+    return cache
+
+
+def make_decode_fn(cfg: ModelConfig, flags: RunFlags, ctx: Any = None):
+    """Returns fn(params, cache, tokens (B,)) -> (logits (B,Vp), cache).
+    The token's k/v (dense) or window entries (hybrid) are written into the
+    given cache in place; the per-layer states are new tensors, as in the
+    reference (they take the compute type)."""
+    _check(cfg, ctx)
+
+    @torch.no_grad()
+    def decode(params, cache, tokens):
+        cdt = getattr(torch, flags.compute_dtype)
+        params = cast_params(params, cdt)
+        B = tokens.shape[0]
+        pos = cache["pos"]                                    # (B,)
+        qpos = pos[:, None]
+        x = embed_lookup(cfg, params, tokens[:, None], ctx).to(cdt)
+        bl = params["blocks"]
+        barange = torch.arange(B, device=tokens.device)
+        pos_l = pos.long()
+
+        if cfg.family == "dense":
+            kc, vc = cache["k"], cache["v"]                   # (L,B,S,KH,hd)
+            kv_pos = cache["kv_pos"]
+            kv_pos[barange, pos_l] = pos
+            for li, wl in enumerate(_unstack(bl, cfg.n_layers)):
+                x = _decode_attn_layer(cfg, wl, x, qpos, kc[li], vc[li],
+                                       kv_pos, pos_l, barange)
+                x = mlp_block(cfg, wl["mlp"], wl["ln2"], x)
+            new_cache = dict(cache, pos=pos + 1)
+
+        elif cfg.family == "hybrid":
+            shared = bl["shared"]
+            n_super, per = bl["mamba_ln"].shape[:2]
+            W = cache["win_k"].shape[2]
+            slot = pos_l % W
+            wk, wv, wp = cache["win_k"], cache["win_v"], cache["win_pos"]
+            states, tails = [], []
+            for si in range(n_super):
+                for pi in range(per):
+                    h = layers.rms_norm(x, bl["mamba_ln"][si, pi],
+                                        cfg.norm_eps)
+                    y, (st, tl) = mamba2.mamba2_decode(
+                        _at(bl["mamba"], si, pi), h, cfg,
+                        cache["mamba_state"][si, pi],
+                        tuple(t[si, pi] for t in cache["conv_tails"]))
+                    x = x + y
+                    states.append(st)
+                    tails.append(tl)
+                # shared attention with the ring-buffer window cache
+                h = layers.rms_norm(x, shared["ln1"], cfg.norm_eps)
+                k1 = (h @ shared["attn"]["wk"]).reshape(B, 1, cfg.n_kv_heads,
+                                                        cfg.head_dim)
+                v1 = (h @ shared["attn"]["wv"]).reshape(B, 1, cfg.n_kv_heads,
+                                                        cfg.head_dim)
+                k1 = layers.apply_rope(k1, qpos, cfg.rope)
+                wk[si, barange, slot] = k1[:, 0].to(wk.dtype)
+                wv[si, barange, slot] = v1[:, 0].to(wv.dtype)
+                wp[si, barange, slot] = pos
+                x = attn_block_decode(cfg, shared["attn"], shared["ln1"], x,
+                                      qpos, wk[si], wv[si], wp[si],
+                                      window=cfg.attn_window)
+                x = mlp_block(cfg, shared["mlp"], shared["ln2"], x)
+            grid = lambda ts: torch.stack(ts).reshape((n_super, per)
+                                                      + ts[0].shape)
+            new_cache = dict(
+                cache, mamba_state=grid(states),
+                conv_tails=tuple(grid([t[i] for t in tails])
+                                 for i in range(3)),
+                pos=pos + 1)
+
+        else:                                                 # ssm
+            parts = []
+            for li in range(cfg.n_layers):
+                w = _at(bl["rwkv"], li)
+                h = layers.rms_norm(x, bl["ln1"][li], cfg.norm_eps)
+                y, tsh, wst = rwkv6.time_mix(w["tmix"], h, cfg,
+                                             cache["tmix_shift"][li],
+                                             cache["wkv_state"][li])
+                x = x + y
+                h = layers.rms_norm(x, bl["ln2"][li], cfg.norm_eps)
+                y, csh = rwkv6.channel_mix(w["cmix"], h,
+                                           cache["cmix_shift"][li])
+                x = x + y
+                parts.append((tsh, wst, csh))
+            new_cache = dict(cache, pos=pos + 1, **{
+                name: torch.stack([p[i] for p in parts]) for i, name in
+                enumerate(("tmix_shift", "wkv_state", "cmix_shift"))})
+
+        logits = lm_logits(cfg, params, x, ctx)[:, 0]
+        return logits, new_cache
+
+    return decode
+
+
+def _decode_attn_layer(cfg, wl, x, qpos, kc_l, vc_l, kv_pos, pos, barange):
+    """Project k/v for this token, write them into this layer's cache
+    slice ``kc_l``/``vc_l`` (views into the serving cache), and attend."""
+    h = layers.rms_norm(x, wl["ln1"], cfg.norm_eps)
+    B = x.shape[0]
+    k1 = (h @ wl["attn"]["wk"]).reshape(B, 1, cfg.n_kv_heads, cfg.head_dim)
+    v1 = (h @ wl["attn"]["wv"]).reshape(B, 1, cfg.n_kv_heads, cfg.head_dim)
+    k1 = layers.apply_rope(k1, qpos, cfg.rope)
+    kc_l[barange, pos] = k1[:, 0].to(kc_l.dtype)
+    vc_l[barange, pos] = v1[:, 0].to(vc_l.dtype)
+    return attn_block_decode(cfg, wl["attn"], wl["ln1"], x, qpos, kc_l, vc_l,
+                             kv_pos)

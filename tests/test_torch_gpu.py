@@ -11,7 +11,8 @@ card.  Run them on a GPU machine with
 without pytest.  Tolerances are the reference's own: matmul 1e-4 (fp32) /
 1.0 (bf16) times max(1, max|ref|); attention 2e-5 (fp32) / 3e-2 (bf16);
 attention gradients 5e-4 times max(1, max|plain|) (both sides take the
-same upcast inputs and accumulate in fp32).
+same upcast inputs and accumulate in fp32); the SSD and WKV-6 scans the
+reference's 1e-3 times max(1, max|plain|).
 """
 import numpy as np
 import pytest
@@ -21,6 +22,10 @@ from repro_torch._tree import leaves, tree_map
 from repro_torch.configs import get_config, smoke
 from repro_torch.kernels.flash_attention import kernel as K
 from repro_torch.kernels.flash_attention import ref as R
+from repro_torch.kernels.mamba2_scan import kernel as SSD
+from repro_torch.kernels.mamba2_scan import ref as SSDref
+from repro_torch.kernels.rwkv6_wkv import kernel as WKV
+from repro_torch.kernels.rwkv6_wkv import ref as WKVref
 from repro_torch.kernels.systolic_matmul import kernel as MM
 from repro_torch.kernels.systolic_matmul import ref as MMref
 from repro_torch.launch.steps import make_train_state, make_train_step
@@ -66,6 +71,8 @@ def test_matmul_kernel_on_card(card, M, N, K, tile, dt):
     (2, 4, 1, 256, 64, True, 0, torch.bfloat16),
     (1, 2, 2, 64, 128, True, 0, torch.bfloat16),
     (1, 2, 1, 96, 32, True, 8, torch.float32),  # ragged for the CUDA tile
+    (1, 4, 2, 128, 80, True, 48, torch.float32),  # zamba2's head dim
+    (1, 4, 4, 256, 80, True, 0, torch.bfloat16),
 ])
 def test_flash_fwd_kernel_on_card(card, B, H, KH, S, D, causal, window, dt):
     rng = np.random.default_rng(3)
@@ -108,6 +115,8 @@ BWD_ROWS = [
     (2, 8, 2, 256, 64, True, 0, torch.bfloat16),
     (1, 2, 1, 128, 128, True, 0, torch.bfloat16),
     (1, 4, 1, 96, 32, True, 8, torch.float32),
+    (1, 4, 2, 128, 80, True, 48, torch.float32),
+    (1, 4, 4, 128, 80, True, 0, torch.bfloat16),
 ]
 
 
@@ -183,3 +192,82 @@ def test_train_step_on_card_matches_cpu(card):
             float(want[key])), key
     assert all(torch.isfinite(p).all() and p.device.type == "cuda"
                for p in leaves(new["params"]))
+
+
+def _scan_tol(*plain):
+    return 1e-3 * max(1.0, max(float(t.abs().max()) for t in plain))
+
+
+@pytest.mark.parametrize("B,L,H,K", [
+    (2, 64, 4, 16), (1, 32, 8, 32),         # the reference's test rows
+    (1, 100, 2, 128),                       # ragged against the staged run
+    (1, 512, 64, 64),                       # rwkv6-7b's heads
+])
+def test_wkv_kernel_on_card(card, B, L, H, K):
+    rng = np.random.default_rng(8)
+    g = lambda *sh: torch.from_numpy(
+        rng.normal(size=sh).astype(np.float32)).to(card)
+    r, k, v = g(B, L, H, K), g(B, L, H, K), g(B, L, H, K)
+    w, u = torch.exp(-torch.exp(g(B, L, H, K))), g(H, K) * 0.5
+    chunk = 16 if L % 16 == 0 else 4
+    before = WKV.launches
+    y, st = WKV.wkv_scan(r, k, v, w, u, chunk=chunk, hb=min(8, H))
+    torch.cuda.synchronize()
+    assert WKV.launches == before + 1
+    py, pst = WKV.wkv_scan_plain(r, k, v, w, u, chunk=chunk, hb=min(8, H))
+    oy, ost = WKVref.wkv_scan_ref(r, k, v, w, u)
+    tol = _scan_tol(py, pst)
+    for got, plain, oracle in ((y, py, oy), (st, pst, ost)):
+        assert torch.isfinite(got).all()
+        assert float((got - plain).abs().max()) < tol
+        assert float((got - oracle).abs().max()) < tol
+
+
+@pytest.mark.parametrize("B,L,H,P,N,chunk,dt", [
+    (2, 64, 8, 16, 8, 16, torch.float32),   # the reference's test rows
+    (1, 128, 4, 8, 16, 32, torch.float32),
+    (1, 256, 8, 64, 64, 128, torch.bfloat16),   # zamba2-2.7b's head
+    (2, 96, 3, 12, 20, 48, torch.float32),  # odd head count, chunk < 128
+])
+def test_ssd_kernel_on_card(card, B, L, H, P, N, chunk, dt):
+    rng = np.random.default_rng(3)
+    g = lambda *sh: torch.from_numpy(
+        rng.normal(size=sh).astype(np.float32)).to(card)
+    x, Bm, Cm = g(B, L, H, P).to(dt), g(B, L, N).to(dt), g(B, L, N).to(dt)
+    dtt = torch.nn.functional.softplus(g(B, L, H))
+    A, D = -torch.exp(g(H) * 0.5), g(H)
+    before = SSD.launches
+    y, st = SSD.ssd_scan(x, dtt, Bm, Cm, A, D, chunk=chunk, hb=1)
+    torch.cuda.synchronize()
+    assert SSD.launches == before + 1
+    py, pst = SSD.ssd_scan_plain(x, dtt, Bm, Cm, A, D, chunk=chunk, hb=1)
+    oy, ost = SSDref.ssd_scan_ref(x, dtt, Bm, Cm, A, D)
+    tol = _scan_tol(py, pst)
+    for got, plain, oracle in ((y, py, oy), (st, pst, ost)):
+        assert torch.isfinite(got).all()
+        assert float((got - plain).abs().max()) < tol
+        assert float((got - oracle).abs().max()) < tol
+
+
+def test_scan_wrappers_refuse_what_the_kernels_do_not_take(card):
+    before = (WKV.launches, SSD.launches)
+    r = torch.ones(1, 16, 2, 16, device=card)
+    u = torch.ones(2, 16, device=card)
+    with pytest.raises(RuntimeError, match="backward"):
+        WKV.wkv_scan(r.clone().requires_grad_(), r, r, r, u)
+    with pytest.raises(TypeError):
+        WKV.wkv_scan(r.bfloat16(), r, r, r, u)
+    with pytest.raises(ValueError):
+        WKV.wkv_scan(*(torch.ones(1, 16, 2, 24, device=card),) * 4,
+                     torch.ones(2, 24, device=card))          # head size 24
+    x = torch.ones(1, 16, 2, 8, device=card)
+    dt = torch.ones(1, 16, 2, device=card)
+    bc = torch.ones(1, 16, 8, device=card)
+    a = torch.ones(2, device=card)
+    with pytest.raises(RuntimeError, match="backward"):
+        SSD.ssd_scan(x.clone().requires_grad_(), dt, bc, bc, a, a, chunk=16)
+    with pytest.raises(TypeError):
+        SSD.ssd_scan(x.bfloat16(), dt, bc, bc, a, a, chunk=16)  # mixed types
+    with pytest.raises(ValueError):
+        SSD.ssd_scan(x, dt, bc, bc, a, a, chunk=2)            # chunk % 4
+    assert (WKV.launches, SSD.launches) == before

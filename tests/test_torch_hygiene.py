@@ -46,11 +46,17 @@ def test_port_files_exist():
                  "models/transformer.py", "models/inputs.py",
                  "optim/adamw.py", "launch/steps.py", "data/synthetic.py",
                  "data/pipeline.py", "checkpoint/manager.py",
-                 "runtime/failures.py", "runtime/trainer.py"):
+                 "runtime/failures.py", "runtime/trainer.py",
+                 "kernels/rwkv6_wkv/kernel.py", "kernels/rwkv6_wkv/ops.py",
+                 "kernels/rwkv6_wkv/ref.py", "kernels/mamba2_scan/kernel.py",
+                 "kernels/mamba2_scan/ops.py", "kernels/mamba2_scan/ref.py",
+                 "models/rwkv6.py", "models/mamba2.py", "serving/engine.py",
+                 "serving/kvpool.py", "serving/slo.py",
+                 "serving/arrivals.py"):
         assert want in names
-    assert (PKG / "kernels/csrc/systolic_matmul.cu").exists()
-    assert (PKG / "kernels/csrc/flash_fwd.cu").exists()
-    assert (PKG / "kernels/csrc/flash_bwd.cu").exists()
+    for src in ("systolic_matmul", "flash_fwd", "flash_bwd", "ssd_scan",
+                "wkv_scan"):
+        assert (PKG / f"kernels/csrc/{src}.cu").exists()
 
 
 @pytest.mark.parametrize("path", FILES,
@@ -138,7 +144,8 @@ def test_build_raises_without_compiler(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     monkeypatch.setattr(_build, "_libs", {})
-    assert _build.sources() == ["flash_bwd", "flash_fwd", "systolic_matmul"]
+    assert _build.sources() == ["flash_bwd", "flash_fwd", "ssd_scan",
+                                "systolic_matmul", "wkv_scan"]
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load("systolic_matmul")
     with pytest.raises(FileNotFoundError):

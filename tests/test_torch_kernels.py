@@ -358,3 +358,49 @@ def test_wrappers_reject_bad_shapes():
         K.flash_dq(q, q, q, q[:, :2], lse, lse, causal=True)
     with pytest.raises(ValueError):                 # lse not (B, H, Sq)
         K.flash_dkdv(q, q, q, q, lse[:, :2], lse, causal=True)
+
+
+# zamba2-2.7b's attention head dim (80 = 5 x 16), fp32 and bf16, causal with
+# a window, GQA
+D80_ROWS = [(1, 4, 2, 128, 80, True, 48, "float32"),
+            (1, 4, 4, 64, 80, True, 0, "bfloat16")]
+
+
+@pytest.mark.parametrize("B,H,KH,S,D,causal,window,dt", D80_ROWS)
+def test_head_dim_80_forward_matches_reference(B, H, KH, S, D, causal,
+                                               window, dt):
+    """The kernels are built for D=80 (``_HEAD_DIMS``, one more template
+    instance per dispatch in flash_fwd.cu / flash_bwd.cu); the wrapper's
+    CPU route and the plain version match the reference's Pallas kernel
+    there, as at the other head dims."""
+    assert 80 in K._HEAD_DIMS
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(B, H, KH, S, D, dt)
+    want_out, want_lse = refK.flash_fwd(jq, jk, jv, causal=causal,
+                                        window=window, bq=32, bk=32)
+    out, lse = K.flash_fwd(tq, tk, tv, causal=causal, window=window, bq=32,
+                           bk=32)
+    plain, _ = K.flash_fwd_plain(tq, tk, tv, causal=causal, window=window,
+                                 bq=64, bk=32)
+    tol = 2e-5 if dt == "float32" else 3e-2
+    assert np.abs(_np(out) - _np(want_out)).max() < tol
+    assert np.abs(_np(plain) - _np(want_out)).max() < tol
+    assert np.abs(lse.numpy() - np.asarray(want_lse)).max() < 2e-5 * max(
+        1.0, np.abs(np.asarray(want_lse)).max())
+
+
+def test_head_dim_80_backward_matches_reference():
+    """``ops.flash_attention`` under autograd at D=80 against the
+    reference's under ``jax.grad`` (the backward plain versions on CPU)."""
+    arrs = _model_layout_inputs(1, 4, 2, 64, 80)
+    kw = dict(causal=True, window=48, bq=32, bk=32)
+
+    def f_ref(q, k, v):
+        return (ref_fa_ops.flash_attention(q, k, v, **kw).astype(jnp.float32)
+                ** 2).sum()
+
+    want = jax.grad(f_ref, argnums=(0, 1, 2))(*map(jnp.asarray, arrs))
+    ts = [torch.from_numpy(a).requires_grad_() for a in arrs]
+    got = torch.autograd.grad(
+        fa_ops.flash_attention(*ts, **kw).float().square().sum(), ts)
+    for g, w in zip(got, want):
+        assert np.abs(g.numpy() - np.asarray(w)).max() < 5e-4

@@ -223,13 +223,42 @@ def test_remat_does_not_change_gradients():
         assert (a - b).abs().max() <= 1e-6 * max(1.0, float(b.abs().max()))
 
 
+@pytest.mark.parametrize("S,window", [(640, 0), (1152, 512)])
+def test_pallas_attention_off_the_512_row_grid(S, window):
+    """Lengths above 512 that 512 does not divide (prompt buckets of
+    serving): the ``pallas`` route clamps its blocks to a divisor of the
+    length and matches the reference's naive attention (1e-5, fp32)."""
+    from repro.models import attention as ref_attn
+
+    from repro_torch.models import attention
+    rng = np.random.default_rng(S)
+    q, k, v = (rng.normal(size=(1, S, h, 16)).astype(np.float32)
+               for h in (4, 2, 2))
+    pos = np.arange(S, dtype=np.int32)[None]
+    want = ref_attn.naive_attention(
+        *map(jnp.asarray, (q, k, v)),
+        spec=ref_attn.AttnSpec(causal=True, window=window),
+        q_pos=jnp.asarray(pos), kv_pos=jnp.asarray(pos))
+    got = attention.attention(
+        *map(torch.from_numpy, (q, k, v)), impl="pallas",
+        spec=attention.AttnSpec(causal=True, window=window),
+        q_pos=torch.from_numpy(pos), kv_pos=torch.from_numpy(pos))
+    assert np.abs(_np(got) - _np(want)).max() < 1e-5
+
+
 @pytest.mark.parametrize("arch", ["zamba2-2.7b", "rwkv6-7b",
                                   "moonshot-v1-16b-a3b", "hubert-xlarge",
                                   "llama-3.2-vision-11b"])
 def test_families_not_ported_raise_naming_the_roadmap(arch):
+    """The ssm and hybrid families have forward, prefill and decode but no
+    training (their scan kernels have no backward); the other families
+    are not ported at all."""
     cfg = smoke(get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    if cfg.family in ("ssm", "hybrid"):
         tf.init_params(cfg, None)
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tf.init_params(cfg, None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tf.make_loss_fn(cfg, tf.RunFlags())
 
