@@ -36,6 +36,7 @@ import dataclasses
 import gc
 import hashlib
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -152,12 +153,45 @@ def phase_env() -> str:
 
 
 # ------------------------------------------------------------------ phase 2
+def ptxas_resources(log: str) -> dict:
+    """Registers, stack, spills and wgmma-serialisation notes of each
+    kernel in one ``nvcc -Xptxas -v`` log, by demangled name."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+            out.setdefault(fn, {})
+        elif fn and "spill stores" in line:
+            n = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+            out[fn].update(stack=n[0], spill_stores=n[1], spill_loads=n[2])
+        elif fn and "registers" in line:
+            out[fn]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                 line).group(1))
+        m = re.search(r"\((C75\d\d)\).*function '(\w+)", line)
+        if m:
+            out.setdefault(m.group(2), {}).setdefault("notes", []).append(
+                m.group(1))
+    if out and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(out), text=True,
+                               capture_output=True).stdout.splitlines()
+        if len(names) == len(out):
+            out = {n.replace("(anonymous namespace)::", "").split("(")[0]: v
+                   for n, v in zip(names, out.values())}
+    return out
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     libs = _build.build_all()
     emit({"phase": "build", "built": sorted(libs),
           "seconds": time.perf_counter() - t0,
-          "dir": str(_build.BUILD_DIR.relative_to(ROOT))})
+          "dir": str(_build.BUILD_DIR.relative_to(ROOT)),
+          # the tensor-core attention bodies' resources, when built here
+          "ptxas": {k: v for lib in ("flash_fwd", "flash_bwd")
+                    for k, v in ptxas_resources(
+                        _build.logs.get(lib, "")).items()
+                    if "fwd90::" in k or "dkdv90::" in k}})
 
 
 # ------------------------------------------------------------------ phase 3
@@ -175,8 +209,10 @@ MM_MAIN = 4          # index of the shape coverify_matmul runs
 
 # (B, H, KH, S, D, causal, window, dtype, bq=bk); five reference test rows,
 # three rows at the llama3.2-1b attention width, the main-path shape of
-# coverify_flash (flash_firmware is MHA fp32) and the shape train_llama
-# gives the kernel (the models call it with bq=bk=512).
+# coverify_flash (flash_firmware is MHA fp32), the shape train_llama gives
+# the kernel (the models call it with bq=bk=512), zamba2's, then the bf16
+# tensor-core body at head dims 16 and 32 and at a length that is no
+# multiple of its 128-row tiles.
 FA_SHAPES = [
     (2, 4, 2, 128, 16, True, 0, torch.float32, 32),
     (1, 4, 4, 64, 32, False, 0, torch.float32, 32),
@@ -189,6 +225,9 @@ FA_SHAPES = [
     (1, 32, 32, 2048, 64, True, 0, torch.float32, 128),
     (2, 32, 8, 2048, 64, True, 0, torch.bfloat16, 512),
     (1, 32, 32, 2048, 80, True, 4096, torch.bfloat16, 512),
+    (2, 4, 2, 128, 16, True, 0, torch.bfloat16, 32),
+    (1, 4, 4, 64, 32, False, 0, torch.bfloat16, 32),
+    (1, 8, 2, 200, 64, True, 0, torch.bfloat16, 40),
 ]
 FA_MAIN = 8
 FA_TRAIN = 9
@@ -196,7 +235,9 @@ FA_ZAMBA = 10        # zamba2-2.7b's shared attention: head dim 80, window
 
 # Backward: the reference's gradient rows (SWEEP[:3] of
 # tests/test_kernels_flash.py), a GQA row with G=4 (a missing head sum shows
-# there) and the shape train_llama gives the kernels.
+# there), the shape train_llama gives the kernels, zamba2's head dim in
+# fp32; then the bf16 dk/dv tensor-core body at the reference's rows, G=4,
+# D=80 with a window, D=128 and a ragged length.
 BWD_SHAPES = [
     (2, 4, 2, 128, 16, True, 0, torch.float32, 32),
     (1, 4, 4, 64, 32, False, 0, torch.float32, 32),
@@ -204,6 +245,13 @@ BWD_SHAPES = [
     (1, 8, 2, 256, 64, True, 0, torch.float32, 32),
     (2, 32, 8, 2048, 64, True, 0, torch.bfloat16, 512),
     (1, 32, 32, 1024, 80, True, 4096, torch.float32, 512),
+    (2, 4, 2, 128, 16, True, 0, torch.bfloat16, 32),
+    (1, 4, 4, 64, 32, False, 0, torch.bfloat16, 32),
+    (2, 8, 2, 128, 16, True, 48, torch.bfloat16, 32),
+    (1, 8, 2, 256, 64, True, 0, torch.bfloat16, 32),
+    (1, 4, 2, 256, 80, True, 48, torch.bfloat16, 32),
+    (1, 2, 1, 128, 128, True, 0, torch.bfloat16, 32),
+    (1, 4, 1, 200, 32, True, 0, torch.bfloat16, 40),
 ]
 BWD_MAIN = 4
 # the reference's gradient tolerance, times max(1, max|plain|); kernel,
@@ -299,6 +347,8 @@ def check_flash(shape) -> dict:
            "block": blk, "dtype": str(dt).split(".")[1],
            "max_abs_err": e_plain, "max_abs_err_ref": e_ref,
            "lse_max_abs_err": e_lse, "tol": tol,
+           "err_over_tol": max(e_plain, e_ref) / tol,
+           "lse_err_over_tol": e_lse / (1e-4 * max(1.0, float(p_lse.abs().max()))),
            "kernel_ms": time_ms(lambda: FAK.flash_fwd(q, k, v, **kw), reps),
            "plain_ms": time_ms(lambda: FAK.flash_fwd_plain(q, k, v, **kw),
                                3 if big else reps),
@@ -325,6 +375,36 @@ def sdpa_backward(q, k, v, dout, causal: bool, window: int):
     out = sdpa(qq, kk, vv, causal, window)()
     return lambda: torch.autograd.grad(out, (qq, kk, vv), dout,
                                        retain_graph=True)
+
+
+def dkdv_one_rounding(q, k, v, dout, lse, delta, causal: bool, window: int):
+    """dk, dv with p and ds each rounded once to bf16 before their products
+    and fp32 otherwise: what a tensor-core dk/dv with a single bf16
+    rounding would compute.  Its distance from the plain version, against
+    the gate, is why the kernel carries p and ds as bf16 hi + lo pairs."""
+    B, H, S, D = q.shape
+    KH = k.shape[1]
+    G = H // KH
+    scale = 1.0 / D ** 0.5
+    qg = q.reshape(B, KH, G, S, D).float()
+    dog = dout.reshape(B, KH, G, S, D).float()
+    pos = torch.arange(S, device=q.device)
+    m = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        m &= pos[None, :] <= pos[:, None]
+    if window:
+        m &= pos[None, :] > pos[:, None] - window
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) * scale
+    p = torch.exp(torch.where(m, s, torch.full_like(s, -1e30))
+                  - lse.reshape(B, KH, G, S)[..., None])
+    p = torch.where(m, p, torch.zeros_like(p))
+    del s
+    dp = torch.einsum("bkgqd,bksd->bkgqs", dog, v.float())
+    ds = p * (dp - delta.reshape(B, KH, G, S)[..., None]) * scale
+    del dp
+    dv = torch.einsum("bkgqs,bkgqd->bksd", p.bfloat16().float(), dog)
+    dk = torch.einsum("bkgqs,bkgqd->bksd", ds.bfloat16().float(), qg)
+    return dk, dv
 
 
 def check_flash_bwd(shape):
@@ -374,6 +454,13 @@ def check_flash_bwd(shape):
                                        for g, t in zip(got, auto)),
                    kernel_ms=time_ms(fn, reps),
                    plain_ms=time_ms(pfn, 3 if big else reps))
+        row["err_over_tol"] = max(row["max_abs_err"],
+                                  row["max_abs_err_ref"]) / tol
+        if name == "flash_dkdv" and dt == torch.bfloat16:
+            one = dkdv_one_rounding(q, k, v, dout, lse, delta, causal, window)
+            row["one_rounding_err_over_tol"] = max(
+                max_err(g, t) for g, t in zip(one, plain)) / tol
+            del one
         row.update(bound(flops, in_bytes + out_bytes, row["dtype"]))
         if not all(torch.isfinite(g).all() for g in got):
             fail(f"{name} {row['shape']}: non-finite output")
@@ -1156,10 +1243,14 @@ def phase_serve(card: str, arch: str) -> dict:
 
 
 # --------------------------------------------------------------------- main
-def kernel_entry(name, source, replaces, main_row, rows, launches) -> dict:
-    """``launches`` maps each main path that runs the kernel to its count
-    there; the entry's ``launches`` is their sum."""
-    return {"name": name, "route": "cuda", "source": source,
+def kernel_entry(name, sources, replaces, main_row, rows, launches) -> dict:
+    """``sources`` names the file with the kernel's C entry point first,
+    then every other file that implements it; ``launches`` maps each main
+    path that runs the kernel to its count there, and the entry's
+    ``launches`` is their sum."""
+    sources = [sources] if isinstance(sources, str) else sources
+    return {"name": name, "route": "cuda", "source": sources[0],
+            "sources": sources,
             "replaces": replaces, "launches": sum(launches.values()),
             "launches_by_path": launches,
             "max_abs_err": main_row["max_abs_err"],
@@ -1204,13 +1295,17 @@ def main() -> int:
                      ref + "systolic_matmul/kernel.py:52",
                      mm_rows[MM_MAIN], mm_rows,
                      {"coverify_matmul": mm_launches}),
-        kernel_entry("flash_fwd", src + "flash_fwd.cu",
+        kernel_entry("flash_fwd", [src + "flash_fwd.cu",
+                                   src + "flash_fwd_sm90.cuh",
+                                   src + "sm90.cuh"],
                      ref + "flash_attention/kernel.py:109",
                      fa_rows[FA_MAIN], fa_rows,
                      {"coverify_flash": fa_launches,
                       "train_llama": train["flash_fwd"],
                       "serve_zamba2": zamba["flash_fwd"]}),
-        kernel_entry("flash_dkdv", src + "flash_bwd.cu",
+        kernel_entry("flash_dkdv", [src + "flash_bwd.cu",
+                                    src + "flash_dkdv_sm90.cuh",
+                                    src + "sm90.cuh"],
                      ref + "flash_attention/kernel.py:186",
                      dkdv_rows[BWD_MAIN], dkdv_rows,
                      {"train_llama": train["flash_dkdv"]}),

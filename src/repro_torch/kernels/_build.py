@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers, so
 ``nvcc`` takes seconds) and becomes its own shared library
 ``build/lib<name>-<hash>.so`` at the repository root, loaded with
-``ctypes``.  The file name carries a hash of the source and of the flags,
-so an edit rebuilds and a stale library is never loaded.  Nothing is
-compiled when a module is imported: ``load`` is called by a kernel's
+``ctypes``.  The file name carries a hash of the source, of every header
+under ``csrc/`` that it includes (directly or through another header) and
+of the flags, so an edit rebuilds and a stale library is never loaded.
+Nothing is compiled when a module is imported: ``load`` is called by a kernel's
 wrapper right before its first launch.  ``build_all`` starts one ``nvcc``
 per source, all at once, for callers that want every kernel up front.
 
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -26,10 +28,15 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 # src/repro_torch/kernels/_build.py -> repository root
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 
+# ``-Xptxas -v``: each kernel's registers, shared memory and spills go to
+# the build log (``logs``)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
+# compiler output of each library built by this process
+logs: Dict[str, str] = {}
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 
 def sources() -> List[str]:
@@ -50,11 +57,28 @@ def _nvcc() -> str:
     return exe
 
 
+def _headers(src: Path) -> List[Path]:
+    """The ``csrc/`` headers that ``src`` includes, directly or through
+    another header, in a fixed order."""
+    seen = set()
+    todo = [src]
+    while todo:
+        for inc in _INCLUDE.findall(todo.pop().read_bytes()):
+            hdr = CSRC / inc.decode()
+            if hdr.exists() and hdr not in seen:
+                seen.add(hdr)
+                todo.append(hdr)
+    return sorted(seen)
+
+
 def _target(name: str) -> Tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
     if not src.exists():
         raise FileNotFoundError(f"no kernel source {src}")
     h = hashlib.sha256(src.read_bytes())
+    for hdr in _headers(src):
+        h.update(hdr.name.encode())
+        h.update(hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -76,6 +100,7 @@ def _finish(name: str, out: Path, proc: Optional[subprocess.Popen],
             tmp: Path) -> ctypes.CDLL:
     if proc is not None:
         log, _ = proc.communicate()
+        logs[name] = log
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(f"nvcc failed on csrc/{name}.cu "

@@ -22,22 +22,26 @@
 //     run concurrently on the GPU, so the head sum lives inside one block.
 //     No atomics: the result does not depend on scheduling.
 //
+// Bodies: bf16 dk/dv runs the tensor-core body of flash_dkdv_sm90.cuh
+// (wgmma on a TMA-fed ring, p and ds carried as bf16 hi + lo pairs); fp32
+// dk/dv and dq of either type run the FMA bodies in this file, inputs
+// upcast to fp32 and all maths in fp32 FMAs.
+//
 // Semantics kept from the reference bodies: layout q/do (B,H,Sq,D),
-// k/v (B,KH,Skv,D), kv head = h / (H/KH) by index; inputs (fp32 or bf16)
-// upcast to fp32, all maths in fp32 FMAs, outputs fp32; NEG = -1e30 is
-// finite, so p is zeroed by the mask and not by underflow; tiles with no
-// unmasked element are skipped (`_tile_live`: causal upper bound, window
-// lower bound); positions outside Sq / Skv are masked.  The kernels use
+// k/v (B,KH,Skv,D), kv head = h / (H/KH) by index; outputs fp32;
+// NEG = -1e30 is finite, so p is zeroed by the mask and not by underflow;
+// tiles with no unmasked element are skipped (`_tile_live`: causal upper
+// bound, window lower bound); positions outside Sq / Skv are masked.  The kernels use
 // their own 64x64 tile whatever bq/bk the caller's burst model uses, which
 // changes the result only by fp32 rounding.
 //
 // Bound: operations.  Causal attention at B=2, H=32, S=2048, D=64 needs
 // 8*D FLOPs per live (q, k) pair and head in dk/dv (68.7 GFLOP) and 6*D in
 // dq (51.5 GFLOP) against about 100 MB of compulsory traffic in bf16.  With
-// true-fp32 products the yardstick is the fp32 FMA rate; bf16 inputs could
-// use the tensor cores in a later version.
+// true-fp32 products the yardstick of the FMA bodies is the fp32 FMA rate;
+// the bf16 dq still runs its FMA body (a tensor-core dq is later work).
 //
-// Design: 256 threads as a 16x16 grid, each owning a 4x4 patch of the
+// FMA design: 256 threads as a 16x16 grid, each owning a 4x4 patch of the
 // 64x64 score tile (rows ty*4+i, columns tx*4+j) and, in the accumulation,
 // the same 4 rows times D/16 columns strided by 16 — the layout of
 // flash_fwd.cu.  Operands of the score products are held transposed in
@@ -47,6 +51,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "flash_dkdv_sm90.cuh"
 
 namespace {
 
@@ -372,8 +378,15 @@ int dispatch(int D, int is_bf16, const Args& a) {
     return static_cast<int>(cudaErrorInvalidValue);
 #define FB_CASE(DD)                                                        \
   case DD:                                                                 \
-    return is_bf16 ? launch<__nv_bfloat16, DD, DKDV>(a)                    \
-                   : launch<float, DD, DKDV>(a);
+    if constexpr (DKDV)                                                    \
+      return is_bf16 ? dkdv90::launch<DD>(a.q, a.k, a.v, a.dout, a.lse,     \
+                                          a.delta, a.o1, a.o2, a.B, a.H,    \
+                                          a.KH, a.Sq, a.Skv, a.causal,      \
+                                          a.window, a.scale, a.stream)      \
+                     : launch<float, DD, true>(a);                          \
+    else                                                                   \
+      return is_bf16 ? launch<__nv_bfloat16, DD, false>(a)                 \
+                     : launch<float, DD, false>(a);
   switch (D) {
     FB_CASE(16)
     FB_CASE(32)
@@ -391,8 +404,10 @@ int dispatch(int D, int is_bf16, const Args& a) {
 // Both launch on `stream`, do not synchronise and allocate nothing.
 // q/dout (B,H,Sq,D) and k/v (B,KH,Skv,D) of one type (is_bf16 selects bf16,
 // else fp32); lse/delta (B,H,Sq) fp32; outputs fp32: dk/dv (B,KH,Skv,D),
-// dq (B,H,Sq,D).  D must be 16, 32, 64, 80 or 128 and KH must divide H.
-// Return cudaGetLastError() (or the error of the shared-memory opt-in).
+// dq (B,H,Sq,D).  D must be 16, 32, 64, 80 or 128 and KH must divide H;
+// bf16 dk/dv needs q, k, v and dout 16-byte aligned (TMA).
+// Return cudaGetLastError() (or the error of the tensor-map encoding or of
+// the shared-memory opt-in).
 extern "C" int flash_dkdv(const void* q, const void* k, const void* v,
                           const void* dout, const void* lse, const void* delta,
                           void* dk, void* dv, int B, int H, int KH, int Sq,

@@ -9,10 +9,14 @@
 // accumulator stay in registers for the whole walk and the (Sq, Skv) score
 // matrix never reaches device memory.
 //
-// Semantics kept from the reference body:
+// Two bodies, chosen by the input type in `flash_fwd` below:
+//   * bf16 q/k/v: the tensor-core body of flash_fwd_sm90.cuh (wgmma on a
+//     TMA-fed ring in shared memory, P rounded to bf16 for P.V);
+//   * fp32 q/k/v: the FMA body in this file, all maths in fp32 FMAs (the
+//     fp32 parity tolerance of 2e-5 rules out TF32 products).
+//
+// Semantics kept from the reference body by both:
 //   * layout q (B,H,Sq,D), k/v (B,KH,Skv,D); kv head = h / (H/KH), by index;
-//   * inputs (fp32 or bf16) upcast to fp32, all maths in fp32 FMAs (the fp32
-//     parity tolerance of 2e-5 rules out TF32 products);
 //   * s = (q.k) * scale, masked entries set to NEG = -1e30 (finite);
 //   * p = exp(s - m_new) is zeroed BY THE MASK, not by underflow: a row that
 //     is wholly masked inside a live tile has m_new = NEG and exp(0) = 1;
@@ -20,15 +24,14 @@
 //     predicate (causal upper bound and sliding-window lower bound);
 //   * l is clamped at 1e-30, out = acc / l cast to q's type,
 //     lse = m + log(l) in fp32.
-// The result does not depend on the tile sizes beyond fp32 rounding, so the
-// kernel uses its own 64x64 tile whatever bq/bk the caller's burst model
+// The result does not depend on the tile sizes beyond rounding, so the
+// kernels use their own tiles whatever bq/bk the caller's burst model
 // uses; positions outside Sq / Skv are masked, so neither has to be a
-// multiple of 64.
+// multiple of the tile.
 //
-// Bound: operations.  Causal attention at H=32, S=2048, D=64 is 17 GFLOP
-// against about 67 MB (fp32) of compulsory traffic; with true-fp32 products
-// the yardstick is the fp32 FMA rate outside the tensor cores.
-//
+// FMA body.  Bound: operations.  Causal attention at H=32, S=2048, D=64 is
+// 17 GFLOP against about 67 MB (fp32) of compulsory traffic; with true-fp32
+// products the yardstick is the fp32 FMA rate outside the tensor cores.
 // Design: 256 threads as a 16x16 grid.  Scores: a 64x64 tile, 4x4 per
 // thread, from Q and K tiles held transposed in shared memory (float4 reads
 // along the row / column axis).  The 16 threads that share a row group are
@@ -41,20 +44,13 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "flash_fwd_sm90.cuh"
+
 namespace {
 
 constexpr int BQ = 64, BKV = 64, NT = 256;
 constexpr int LDT = 64 + 4;            // padded row of a 64-wide tile
 constexpr float NEG = -1.0e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void from_f32(float x, float* p) { *p = x; }
-__device__ __forceinline__ void from_f32(float x, __nv_bfloat16* p) {
-  *p = __float2bfloat16_rn(x);
-}
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -75,10 +71,10 @@ __device__ __forceinline__ float group16_sum(float x) {
   return x;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-fwd_kernel(const T* __restrict__ Q, const T* __restrict__ Kg,
-           const T* __restrict__ Vg, T* __restrict__ O,
+fwd_kernel(const float* __restrict__ Q, const float* __restrict__ Kg,
+           const float* __restrict__ Vg, float* __restrict__ O,
            float* __restrict__ LSE, int H, int KH, int Sq, int Skv,
            int causal, int window, float scale) {
   constexpr int DT = D / 16;           // output columns per thread
@@ -96,14 +92,14 @@ fwd_kernel(const T* __restrict__ Q, const T* __restrict__ Kg,
   const int kvh = h / (H / KH);
   const int q0 = qi * BQ;
 
-  const T* Qb = Q + ((size_t)b * H + h) * Sq * D;
-  const T* Kb = Kg + ((size_t)b * KH + kvh) * Skv * D;
-  const T* Vb = Vg + ((size_t)b * KH + kvh) * Skv * D;
+  const float* Qb = Q + ((size_t)b * H + h) * Sq * D;
+  const float* Kb = Kg + ((size_t)b * KH + kvh) * Skv * D;
+  const float* Vb = Vg + ((size_t)b * KH + kvh) * Skv * D;
 
   // Q tile, transposed into shared memory once
   for (int idx = tid; idx < BQ * D; idx += NT) {
     const int r = idx / D, d = idx % D;
-    Qt[d * LDT + r] = (q0 + r < Sq) ? to_f32(Qb[(size_t)(q0 + r) * D + d]) : 0.f;
+    Qt[d * LDT + r] = (q0 + r < Sq) ? Qb[(size_t)(q0 + r) * D + d] : 0.f;
   }
 
   float m_run[4], l_run[4], acc[4][DT];
@@ -129,8 +125,8 @@ fwd_kernel(const T* __restrict__ Q, const T* __restrict__ Kg,
       const int r = idx / D, d = idx % D;
       const bool in = k0 + r < Skv;
       const size_t g = (size_t)(k0 + r) * D + d;
-      Kt[d * LDT + r] = in ? to_f32(Kb[g]) : 0.f;
-      Vs[r * LDV + d] = in ? to_f32(Vb[g]) : 0.f;
+      Kt[d * LDT + r] = in ? Kb[g] : 0.f;
+      Vs[r * LDV + d] = in ? Vb[g] : 0.f;
     }
     __syncthreads();
 
@@ -212,7 +208,7 @@ fwd_kernel(const T* __restrict__ Q, const T* __restrict__ Kg,
   }
 
   // ---- finalise: clamp l, normalise, cast; lse = m + log(l)
-  T* Ob = O + ((size_t)b * H + h) * Sq * D;
+  float* Ob = O + ((size_t)b * H + h) * Sq * D;
   float* Lb = LSE + ((size_t)b * H + h) * Sq;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -221,17 +217,17 @@ fwd_kernel(const T* __restrict__ Q, const T* __restrict__ Kg,
     const float l = fmaxf(l_run[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < DT; ++j)
-      from_f32(acc[i][j] / l, &Ob[(size_t)row * D + tx + 16 * j]);
+      Ob[(size_t)row * D + tx + 16 * j] = acc[i][j] / l;
     if (tx == 0) Lb[row] = m_run[i] + logf(l);
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int H, int KH, int Sq, int Skv, int causal, int window,
            float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
-  auto kern = fwd_kernel<T, D>;
+  auto kern = fwd_kernel<D>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -239,33 +235,21 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   }
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   kern<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, H, KH, Sq, Skv,
-      causal, window, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, H, KH, Sq,
+      Skv, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
-               float* lse, int B, int H, int KH, int Sq, int Skv, int causal,
-               int window, float scale, cudaStream_t s) {
-  switch (D) {
-    case 16:  return launch<T, 16>(q, k, v, o, lse, B, H, KH, Sq, Skv, causal, window, scale, s);
-    case 32:  return launch<T, 32>(q, k, v, o, lse, B, H, KH, Sq, Skv, causal, window, scale, s);
-    case 64:  return launch<T, 64>(q, k, v, o, lse, B, H, KH, Sq, Skv, causal, window, scale, s);
-    case 80:  return launch<T, 80>(q, k, v, o, lse, B, H, KH, Sq, Skv, causal, window, scale, s);
-    case 128: return launch<T, 128>(q, k, v, o, lse, B, H, KH, Sq, Skv, causal, window, scale, s);
-    default:  return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace
 
 // Launches on `stream`, does not synchronise, allocates nothing.
 // q/out (B,H,Sq,D), k/v (B,KH,Skv,D), lse (B,H,Sq) fp32; is_bf16 selects the
-// type of q, k, v and out.  D must be 16, 32, 64, 80 or 128 and KH must
-// divide H.
-// Returns cudaGetLastError() (or the error of the shared-memory opt-in).
+// type of q, k, v and out: bf16 runs the tensor-core body (q, k and v
+// 16-byte aligned), fp32 the FMA body.  D must be 16, 32, 64, 80 or 128 and
+// KH must divide H.
+// Returns cudaGetLastError() (or the error of the tensor-map encoding or of
+// the shared-memory opt-in).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* out, void* lse, int B, int H, int KH, int Sq,
                          int Skv, int D, int causal, int window, float scale,
@@ -275,9 +259,21 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
       H > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   float* l = static_cast<float*>(lse);
-  return is_bf16
-             ? dispatch_d<__nv_bfloat16>(D, q, k, v, out, l, B, H, KH, Sq, Skv,
-                                         causal, window, scale, s)
-             : dispatch_d<float>(D, q, k, v, out, l, B, H, KH, Sq, Skv, causal,
-                                 window, scale, s);
+#define FB_CASE(DD)                                                          \
+  case DD:                                                                   \
+    return is_bf16 ? fwd90::launch<DD>(q, k, v, out, l, B, H, KH, Sq, Skv,   \
+                                       causal, window, scale, s)             \
+                   : launch<DD>(q, k, v, out, l, B, H, KH, Sq, Skv, causal,  \
+                                window, scale, s);
+  switch (D) {
+    FB_CASE(16)
+    FB_CASE(32)
+    FB_CASE(64)
+    FB_CASE(80)
+    FB_CASE(128)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef FB_CASE
 }
+

@@ -1,6 +1,9 @@
 """Flash attention — hand-written CUDA kernels for the forward
 (``csrc/flash_fwd.cu``: online softmax) and the backward
 (``csrc/flash_bwd.cu``: dk/dv and dq), each with its plain PyTorch version.
+bf16 forward and dk/dv run tensor-core bodies (``csrc/flash_fwd_sm90.cuh``,
+``csrc/flash_dkdv_sm90.cuh``: wgmma on TMA-fed tiles); fp32 inputs, and the
+dq kernel of either type, run fp32-FMA bodies.
 
 Layout: (B, H, S, D).  GQA is handled by index (kv head ``h // G``); no KV
 repeat is ever materialised.  Causal / sliding-window tiles that are fully
@@ -229,7 +232,8 @@ def _check_kernel_operands(name: str, D: int, window: int, *ts: torch.Tensor
                            ) -> None:
     """What every attention kernel refuses: q/k/v(/dout) of mixed or other
     types, head dims it is not built for, a negative window, strided
-    tensors."""
+    tensors, and bf16 tensors whose data does not start on a 16-byte
+    boundary (the tensor-core bodies copy tiles with TMA)."""
     if len({t.dtype for t in ts}) != 1 or ts[0].dtype not in _DTYPES:
         raise TypeError(f"{name} kernel takes float32 or bfloat16 q/k/v of "
                         f"one type, got {[t.dtype for t in ts]}")
@@ -239,14 +243,24 @@ def _check_kernel_operands(name: str, D: int, window: int, *ts: torch.Tensor
         raise ValueError(f"window must be >= 0, got {window}")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("kernel takes contiguous (B,H,S,D) tensors")
+    if ts[0].dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in ts):
+        raise ValueError("bf16 kernel takes tensors whose data starts on a "
+                         "16-byte boundary (TMA), got a misaligned view")
 
 
 def _launch(name: str, ptrs, B, H, KH, Sq, Skv, D, causal, window, bf16,
             device) -> None:
-    with torch.cuda.device(device):
-        err = _fn(name)(*ptrs, B, H, KH, Sq, Skv, D, int(bool(causal)),
-                        int(window), 1.0 / math.sqrt(D), int(bf16),
-                        torch.cuda.current_stream().cuda_stream)
+    """Launch on the current stream of ``device`` (made the current device
+    only if it is not already: the switch and the stream object cost more
+    host time than a small kernel takes on the card)."""
+    args = (*ptrs, B, H, KH, Sq, Skv, D, int(bool(causal)), int(window),
+            1.0 / math.sqrt(D), int(bf16))
+    if device.index == torch.cuda.current_device():
+        err = _fn(name)(*args,
+                        torch._C._cuda_getCurrentRawStream(device.index))
+    else:
+        with torch.cuda.device(device):
+            err = _fn(name)(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch refused: CUDA error {err}")
 
@@ -263,9 +277,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_fwd_plain(q, k, v, causal=causal, window=window, bq=bq,
                                bk=bk)
     _check_kernel_operands("flash_fwd", D, window, q, k, v)
-    with torch.cuda.device(q.device):
-        out = torch.empty_like(q)
-        lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     _launch("flash_fwd", (q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           out.data_ptr(), lse.data_ptr()),
             B, H, KH, Sq, Skv, D, causal, window, q.dtype == torch.bfloat16,
@@ -305,9 +318,8 @@ def flash_dkdv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if cpu:
         return flash_dkdv_plain(q, k, v, dout, lse, delta, causal=causal,
                                 window=window, bq=bq, bk=bk)
-    with torch.cuda.device(q.device):
-        dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
-        dv = torch.empty_like(dk)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.empty_like(dk)
     _launch("flash_dkdv", (q.data_ptr(), k.data_ptr(), v.data_ptr(),
                            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                            dk.data_ptr(), dv.data_ptr()),
@@ -330,8 +342,7 @@ def flash_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if cpu:
         return flash_dq_plain(q, k, v, dout, lse, delta, causal=causal,
                               window=window, bq=bq, bk=bk)
-    with torch.cuda.device(q.device):
-        dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     _launch("flash_dq", (q.data_ptr(), k.data_ptr(), v.data_ptr(),
                          dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                          dq.data_ptr()),

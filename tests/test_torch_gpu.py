@@ -73,6 +73,11 @@ def test_matmul_kernel_on_card(card, M, N, K, tile, dt):
     (1, 2, 1, 96, 32, True, 8, torch.float32),  # ragged for the CUDA tile
     (1, 4, 2, 128, 80, True, 48, torch.float32),  # zamba2's head dim
     (1, 4, 4, 256, 80, True, 0, torch.bfloat16),
+    # the tensor-core body at every head dim, ragged for its 128-row tiles
+    (2, 4, 2, 128, 16, True, 0, torch.bfloat16),
+    (1, 4, 4, 64, 32, False, 0, torch.bfloat16),
+    (1, 4, 1, 160, 64, True, 0, torch.bfloat16),
+    (1, 4, 2, 96, 80, True, 48, torch.bfloat16),
 ])
 def test_flash_fwd_kernel_on_card(card, B, H, KH, S, D, causal, window, dt):
     rng = np.random.default_rng(3)
@@ -102,6 +107,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     q = torch.ones(1, 2, 32, 24, device=card)
     with pytest.raises(ValueError):
         K.flash_fwd(q, q, q, causal=True)        # head dim 24
+    before = K.launches
+    # contiguous, but 2 bytes past a 16-byte boundary: TMA cannot copy it
+    qm = torch.ones(2 * 32 * 64 + 1, device=card,
+                    dtype=torch.bfloat16)[1:].view(1, 2, 32, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        K.flash_fwd(qm, qm, qm, causal=True)
+    assert K.launches == before
 
 
 BWD_ROWS = [
@@ -117,6 +129,14 @@ BWD_ROWS = [
     (1, 4, 1, 96, 32, True, 8, torch.float32),
     (1, 4, 2, 128, 80, True, 48, torch.float32),
     (1, 4, 4, 128, 80, True, 0, torch.bfloat16),
+    # the dk/dv tensor-core body: the reference's rows in bf16, G=4, D=80
+    # with a window, a ragged length
+    (2, 4, 2, 128, 16, True, 0, torch.bfloat16),
+    (1, 4, 4, 64, 32, False, 0, torch.bfloat16),
+    (2, 8, 2, 128, 16, True, 48, torch.bfloat16),
+    (1, 8, 2, 256, 64, True, 0, torch.bfloat16),
+    (1, 4, 2, 128, 80, True, 48, torch.bfloat16),
+    (1, 4, 1, 96, 32, True, 8, torch.bfloat16),
 ]
 
 
@@ -162,6 +182,12 @@ def test_bwd_wrappers_refuse_what_the_kernels_do_not_take(card):
         K.flash_dkdv(q, q, q, q.bfloat16(), lse, lse, causal=True)
     with pytest.raises(TypeError):
         K.flash_dq(q, q, q, q, lse.double(), lse, causal=True)
+    before = (K.dkdv_launches, K.dq_launches)
+    qm = torch.ones(2 * 64 * 16 + 1, device=card,
+                    dtype=torch.bfloat16)[1:].view(1, 2, 64, 16)
+    with pytest.raises(ValueError, match="16-byte"):
+        K.flash_dkdv(qm, qm, qm, qm, lse, lse, causal=True)    # misaligned
+    assert (K.dkdv_launches, K.dq_launches) == before
 
 
 def test_train_step_on_card_matches_cpu(card):

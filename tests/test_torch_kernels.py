@@ -14,6 +14,8 @@ sides accumulate in fp32 but sum in different orders, and bf16 rounds the
 final cast, hence not bit-for-bit.  ``transactions()`` carries no values
 and must be equal tuple for tuple.
 """
+import shutil
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +28,7 @@ from repro.kernels.flash_attention import ref as refR
 from repro.kernels.systolic_matmul import kernel as refMM
 from repro.kernels.systolic_matmul import ops as ref_mm_ops
 from repro.kernels.systolic_matmul import ref as refMMref
+from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import kernel as K
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as R
@@ -404,3 +407,31 @@ def test_head_dim_80_backward_matches_reference():
         fa_ops.flash_attention(*ts, **kw).float().square().sum(), ts)
     for g, w in zip(got, want):
         assert np.abs(g.numpy() - np.asarray(w)).max() < 5e-4
+
+
+def test_build_target_follows_included_headers(tmp_path, monkeypatch):
+    """A kernel library's name hashes its source and every ``csrc/`` header
+    it includes, directly or through another header: editing ``sm90.cuh``
+    (included by the attention sources through their ``*_sm90.cuh``)
+    renames both attention libraries and no other; a file that no source
+    includes renames nothing.  Nothing is compiled."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+
+    def targets():
+        return {n: _build._target(n)[1] for n in _build.sources()}
+
+    before = targets()
+    assert {"flash_fwd", "flash_bwd", "ssd_scan"} <= set(before)
+    assert all(p.parent == tmp_path / "build" for p in before.values())
+    hdr = csrc / "sm90.cuh"
+    hdr.write_text(hdr.read_text() + "\n// an edit\n")
+    after = targets()
+    changed = {n for n in before if before[n] != after[n]}
+    assert changed == {"flash_fwd", "flash_bwd"}
+    (csrc / "notes.txt").write_text("not a source")
+    (csrc / "unused.cuh").write_text("// included by nothing\n")
+    assert targets() == after
+    assert not (tmp_path / "build").exists()
