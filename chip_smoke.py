@@ -52,6 +52,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch._device import true_fp32
 from repro_torch._tree import leaves, tree_map
 from repro_torch.configs import get_config, smoke
 from repro_torch.core import CongestionConfig, FireBridge, coverify
@@ -81,9 +82,12 @@ from repro_torch.serving import Request, ServingEngine
 
 # Published dense peaks of one H100 SXM (NVIDIA data sheet): the fp32 rate
 # outside the tensor cores bounds a true-fp32 product; bf16 operands could
-# go through the tensor cores, so they are held to that rate.
+# go through the tensor cores, so they are held to that rate; fp32 matmul
+# operands could go through them as TF32, so the function's 2MNK is held
+# to the TF32 rate.
 PEAK_FLOPS = {"float32": ("fp32_fma_67_TFLOPs", 67e12),
-              "bfloat16": ("bf16_tensor_989_TFLOPs", 989e12)}
+              "bfloat16": ("bf16_tensor_989_TFLOPs", 989e12),
+              "tf32": ("tf32_tensor_494.7_TFLOPs", 494.7e12)}
 PEAK_BYTES = ("hbm_3.35_TBps", 3.35e12)
 
 CONG = dict(dos_prob=0.05, seed=7)
@@ -188,15 +192,19 @@ def phase_build() -> None:
           "seconds": time.perf_counter() - t0,
           "dir": str(_build.BUILD_DIR.relative_to(ROOT)),
           # the tensor-core attention bodies' resources, when built here
-          "ptxas": {k: v for lib in ("flash_fwd", "flash_bwd")
+          "ptxas": {k: v for lib in ("flash_fwd", "flash_bwd",
+                                     "systolic_matmul")
                     for k, v in ptxas_resources(
                         _build.logs.get(lib, "")).items()
-                    if "fwd90::" in k or "dkdv90::" in k}})
+                    if any(ns in k for ns in ("fwd90::", "dkdv90::",
+                                              "dq90::", "mm90::"))}})
 
 
 # ------------------------------------------------------------------ phase 3
 # (M, N, K, tile, dtype); the first three are the reference test rows, then
-# the largest Fig. 5 case and the full-size main-path shape.
+# the largest Fig. 5 case, the full-size main-path shape, a shape ragged for
+# the fp32 body (K no multiple of 8, M and N no multiple of its C tile), and
+# a longer K, where the tensor core's accumulation error shows most.
 MM_SHAPES = [
     (256, 128, 128, 64, torch.float32),
     (128, 256, 512, 64, torch.bfloat16),
@@ -204,8 +212,13 @@ MM_SHAPES = [
     (800, 800, 800, 50, torch.float32),
     (4096, 4096, 4096, 128, torch.float32),
     (4096, 4096, 4096, 128, torch.bfloat16),
+    (100, 300, 250, 50, torch.float32),
+    (2048, 2048, 8192, 128, torch.float32),
 ]
 MM_MAIN = 4          # index of the shape coverify_matmul runs
+# the fp32 body keeps 3xTF32 only while every fp32 row is within half its
+# gate (the rule that chose hi + lo for the attention backward)
+SPLIT_RULE = 0.5
 
 # (B, H, KH, S, D, causal, window, dtype, bq=bk); five reference test rows,
 # three rows at the llama3.2-1b attention width, the main-path shape of
@@ -236,8 +249,8 @@ FA_ZAMBA = 10        # zamba2-2.7b's shared attention: head dim 80, window
 # Backward: the reference's gradient rows (SWEEP[:3] of
 # tests/test_kernels_flash.py), a GQA row with G=4 (a missing head sum shows
 # there), the shape train_llama gives the kernels, zamba2's head dim in
-# fp32; then the bf16 dk/dv tensor-core body at the reference's rows, G=4,
-# D=80 with a window, D=128 and a ragged length.
+# fp32; then the bf16 tensor-core bodies (dk/dv and dq) at the reference's
+# rows, G=4, D=80 with a window, D=128 and a ragged length.
 BWD_SHAPES = [
     (2, 4, 2, 128, 16, True, 0, torch.float32, 32),
     (1, 4, 4, 64, 32, False, 0, torch.float32, 32),
@@ -259,6 +272,31 @@ BWD_MAIN = 4
 BWD_TOL = 5e-4
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32``: half of the 13 dropped bits is
+    added to the magnitude, then they are cleared."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+@true_fp32()
+def matmul_tf32_terms(a: torch.Tensor, b: torch.Tensor,
+                      terms: int) -> torch.Tensor:
+    """fp32 (M,K) @ (K,N) from TF32 splits x = hi + lo, hi = tf32(x),
+    lo = tf32(x - hi): ``terms`` = 1 is A_hi.B_hi (one TF32 product), 2 adds
+    A_hi.B_lo, 3 adds A_lo.B_hi (the fp32 kernel's body).  Each product of
+    two TF32 words is exact in fp32; the sums are fp32."""
+    a, b = a.float(), b.float()
+    ah, bh = tf32_round(a), tf32_round(b)
+    out = ah @ bh
+    if terms >= 2:
+        out = out + ah @ tf32_round(b - bh)
+    if terms >= 3:
+        out = out + tf32_round(a - ah) @ bh
+    return out
+
+
 def check_matmul(shape) -> dict:
     M, N, K, tile, dt = shape
     rng = np.random.default_rng(M * 31 + N * 17 + K)
@@ -277,17 +315,41 @@ def check_matmul(shape) -> dict:
     reps = 5 if big else 20
     row = {"shape": [M, N, K], "tile": tile, "dtype": str(dt).split(".")[1],
            "max_abs_err": e_plain, "max_abs_err_ref": e_ref, "tol": tol,
+           "err_over_tol": max(e_plain, e_ref) / tol,
            "kernel_ms": time_ms(lambda: MMK.matmul(a, b, **kw), reps),
            "plain_ms": time_ms(lambda: MMK.matmul_plain(a, b, **kw),
                                3 if big else reps),
            "library_ms": time_ms(lambda: torch.matmul(a, b), reps)}
-    row.update(bound(2.0 * M * N * K,
-                     (M * K + K * N + M * N) * a.element_size(),
-                     row["dtype"]))
+    flops = 2.0 * M * N * K
+    nbytes = (M * K + K * N + M * N) * a.element_size()
+    if dt == torch.float32:
+        # the function's 2MNK at the TF32 rate; beside it (informational)
+        # the fp32 FMA bound and the bound of the three TF32 products that
+        # the body runs
+        row.update(bound(flops, nbytes, "tf32"))
+        row["bound_ms_fma"] = bound(flops, nbytes, "float32")["bound_ms"]
+        row["bound_ms_3xtf32"] = bound(3 * flops, nbytes, "tf32")["bound_ms"]
+        # what one and two TF32 products would give (the same arithmetic
+        # in plain ops), and the three-product model itself
+        for name, terms in (("one_tf32", 1), ("two_tf32", 2),
+                            ("three_tf32_model", 3)):
+            row[f"{name}_err_over_tol"] = max_err(
+                matmul_tf32_terms(a, b, terms), plain) / tol
+        # the sign of the error against the result's (a truncating
+        # accumulator shows as a negative bias growing with K)
+        sign = torch.sign(plain.float())
+        row["signed_rel_bias"] = float(
+            ((got.float() - plain.float()) * sign).mean()) / float(
+                plain.float().abs().mean())
+        del sign
+    else:
+        row.update(bound(flops, nbytes, row["dtype"]))
     if not (got.shape == (M, N) and torch.isfinite(got.float()).all()):
         fail(f"systolic_matmul {row['shape']}: non-finite or misshapen output")
     if not (e_plain < tol and e_ref < tol):
         fail(f"systolic_matmul {row}: outside tolerance")
+    if dt == torch.float32 and row["err_over_tol"] >= SPLIT_RULE:
+        fail(f"systolic_matmul {row}: the 3xTF32 body misses half its gate")
     return row
 
 
@@ -377,11 +439,13 @@ def sdpa_backward(q, k, v, dout, causal: bool, window: int):
                                        retain_graph=True)
 
 
-def dkdv_one_rounding(q, k, v, dout, lse, delta, causal: bool, window: int):
-    """dk, dv with p and ds each rounded once to bf16 before their products
-    and fp32 otherwise: what a tensor-core dk/dv with a single bf16
-    rounding would compute.  Its distance from the plain version, against
-    the gate, is why the kernel carries p and ds as bf16 hi + lo pairs."""
+def one_rounding(name, q, k, v, dout, lse, delta, causal: bool,
+                 window: int):
+    """The kernel's gradients with p and ds (``flash_dkdv``) or ds alone
+    (``flash_dq``) rounded once to bf16 before their products, fp32
+    otherwise: what a tensor-core body with a single bf16 rounding would
+    compute.  Its distance from the plain version, against the gate, is why
+    the bf16 bodies carry them as bf16 hi + lo pairs."""
     B, H, S, D = q.shape
     KH = k.shape[1]
     G = H // KH
@@ -402,8 +466,12 @@ def dkdv_one_rounding(q, k, v, dout, lse, delta, causal: bool, window: int):
     dp = torch.einsum("bkgqd,bksd->bkgqs", dog, v.float())
     ds = p * (dp - delta.reshape(B, KH, G, S)[..., None]) * scale
     del dp
+    ds = ds.bfloat16().float()
+    if name == "flash_dq":
+        return (torch.einsum("bkgqs,bksd->bkgqd", ds, k.float())
+                .reshape(B, H, S, D),)
     dv = torch.einsum("bkgqs,bkgqd->bksd", p.bfloat16().float(), dog)
-    dk = torch.einsum("bkgqs,bkgqd->bksd", ds.bfloat16().float(), qg)
+    dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qg)
     return dk, dv
 
 
@@ -456,8 +524,9 @@ def check_flash_bwd(shape):
                    plain_ms=time_ms(pfn, 3 if big else reps))
         row["err_over_tol"] = max(row["max_abs_err"],
                                   row["max_abs_err_ref"]) / tol
-        if name == "flash_dkdv" and dt == torch.bfloat16:
-            one = dkdv_one_rounding(q, k, v, dout, lse, delta, causal, window)
+        if dt == torch.bfloat16:
+            one = one_rounding(name, q, k, v, dout, lse, delta, causal,
+                               window)
             row["one_rounding_err_over_tol"] = max(
                 max_err(g, t) for g, t in zip(one, plain)) / tol
             del one
@@ -1256,6 +1325,8 @@ def kernel_entry(name, sources, replaces, main_row, rows, launches) -> dict:
             "max_abs_err": main_row["max_abs_err"],
             "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+            **{k: main_row[k] for k in ("bound_ms_fma", "bound_ms_3xtf32")
+               if k in main_row},
             "library_ms": main_row["library_ms"], "tol": main_row["tol"],
             **({"library": main_row["library"]} if "library" in main_row
                else {}),
@@ -1291,7 +1362,9 @@ def main() -> int:
     src = "src/repro_torch/kernels/csrc/"
     ref = "src/repro/kernels/"
     emit({"kernels": [
-        kernel_entry("systolic_matmul", src + "systolic_matmul.cu",
+        kernel_entry("systolic_matmul", [src + "systolic_matmul.cu",
+                                         src + "systolic_matmul_sm90.cuh",
+                                         src + "sm90.cuh"],
                      ref + "systolic_matmul/kernel.py:52",
                      mm_rows[MM_MAIN], mm_rows,
                      {"coverify_matmul": mm_launches}),
@@ -1309,7 +1382,9 @@ def main() -> int:
                      ref + "flash_attention/kernel.py:186",
                      dkdv_rows[BWD_MAIN], dkdv_rows,
                      {"train_llama": train["flash_dkdv"]}),
-        kernel_entry("flash_dq", src + "flash_bwd.cu",
+        kernel_entry("flash_dq", [src + "flash_bwd.cu",
+                                  src + "flash_dq_sm90.cuh",
+                                  src + "sm90.cuh"],
                      ref + "flash_attention/kernel.py:256",
                      dq_rows[BWD_MAIN], dq_rows,
                      {"train_llama": train["flash_dq"]}),

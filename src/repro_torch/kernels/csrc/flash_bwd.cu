@@ -22,10 +22,10 @@
 //     run concurrently on the GPU, so the head sum lives inside one block.
 //     No atomics: the result does not depend on scheduling.
 //
-// Bodies: bf16 dk/dv runs the tensor-core body of flash_dkdv_sm90.cuh
-// (wgmma on a TMA-fed ring, p and ds carried as bf16 hi + lo pairs); fp32
-// dk/dv and dq of either type run the FMA bodies in this file, inputs
-// upcast to fp32 and all maths in fp32 FMAs.
+// Bodies: bf16 inputs run the tensor-core bodies of flash_dkdv_sm90.cuh
+// and flash_dq_sm90.cuh (wgmma on TMA-fed rings; p and ds, or ds alone,
+// carried as bf16 hi + lo pairs); fp32 inputs run the FMA bodies in this
+// file, all maths in fp32 FMAs.
 //
 // Semantics kept from the reference bodies: layout q/do (B,H,Sq,D),
 // k/v (B,KH,Skv,D), kv head = h / (H/KH) by index; outputs fp32;
@@ -38,8 +38,8 @@
 // Bound: operations.  Causal attention at B=2, H=32, S=2048, D=64 needs
 // 8*D FLOPs per live (q, k) pair and head in dk/dv (68.7 GFLOP) and 6*D in
 // dq (51.5 GFLOP) against about 100 MB of compulsory traffic in bf16.  With
-// true-fp32 products the yardstick of the FMA bodies is the fp32 FMA rate;
-// the bf16 dq still runs its FMA body (a tensor-core dq is later work).
+// true-fp32 products the yardstick of the FMA bodies (fp32 inputs) is the
+// fp32 FMA rate; that of the bf16 bodies the bf16 tensor-core rate.
 //
 // FMA design: 256 threads as a 16x16 grid, each owning a 4x4 patch of the
 // 64x64 score tile (rows ty*4+i, columns tx*4+j) and, in the accumulation,
@@ -53,6 +53,7 @@
 #include <math.h>
 
 #include "flash_dkdv_sm90.cuh"
+#include "flash_dq_sm90.cuh"
 
 namespace {
 
@@ -60,21 +61,16 @@ constexpr int BQ = 64, BKV = 64, NT = 256;
 constexpr int LDT = 64 + 4;            // padded row of a transposed tile
 constexpr float NEG = -1.0e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// Rows [r0, r0+64) of a (S, D) matrix, upcast, into shared memory: once
-// transposed (t[d*LDT + r]) and, if `rm` is given, once row-major
-// (rm[r*(D+4) + d]).  Rows outside S read as zero.
-template <typename T, int D>
+// Rows [r0, r0+64) of a (S, D) matrix into shared memory: once transposed
+// (t[d*LDT + r]) and, if `rm` is given, once row-major (rm[r*(D+4) + d]).
+// Rows outside S read as zero.
+template <int D>
 __device__ __forceinline__ void load_tile(float* t, float* rm,
-                                          const T* __restrict__ src, int r0,
-                                          int S, int tid) {
+                                          const float* __restrict__ src,
+                                          int r0, int S, int tid) {
   for (int idx = tid; idx < 64 * D; idx += NT) {
     const int r = idx / D, d = idx % D;
-    const float x = (r0 + r < S) ? to_f32(src[(size_t)(r0 + r) * D + d]) : 0.f;
+    const float x = (r0 + r < S) ? src[(size_t)(r0 + r) * D + d] : 0.f;
     t[d * LDT + r] = x;
     if (rm) rm[r * (D + 4) + d] = x;
   }
@@ -157,10 +153,10 @@ constexpr size_t dkdv_smem() {
   return sizeof(float) * (4 * D * LDT + 2 * BQ * (D + 4) + BKV * LDT + 2 * BQ);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-dq_kernel(const T* __restrict__ Q, const T* __restrict__ Kg,
-          const T* __restrict__ Vg, const T* __restrict__ dO,
+dq_kernel(const float* __restrict__ Q, const float* __restrict__ Kg,
+          const float* __restrict__ Vg, const float* __restrict__ dO,
           const float* __restrict__ LSE, const float* __restrict__ DELTA,
           float* __restrict__ dQ, int H, int KH, int Sq, int Skv, int causal,
           int window, float scale) {
@@ -181,10 +177,10 @@ dq_kernel(const T* __restrict__ Q, const T* __restrict__ Kg,
   const int q0 = qi * BQ;
   const size_t bh = (size_t)b * H + h;
 
-  const T* Kb = Kg + ((size_t)b * KH + kvh) * Skv * D;
-  const T* Vb = Vg + ((size_t)b * KH + kvh) * Skv * D;
-  load_tile<T, D>(Qt, nullptr, Q + bh * Sq * D, q0, Sq, tid);
-  load_tile<T, D>(dOt, nullptr, dO + bh * Sq * D, q0, Sq, tid);
+  const float* Kb = Kg + ((size_t)b * KH + kvh) * Skv * D;
+  const float* Vb = Vg + ((size_t)b * KH + kvh) * Skv * D;
+  load_tile<D>(Qt, nullptr, Q + bh * Sq * D, q0, Sq, tid);
+  load_tile<D>(dOt, nullptr, dO + bh * Sq * D, q0, Sq, tid);
 
   float lse[4], delta[4], acc[4][DT];
 #pragma unroll
@@ -201,8 +197,8 @@ dq_kernel(const T* __restrict__ Q, const T* __restrict__ Kg,
     const int k0 = kj * BKV;
     if (!tile_live(q0, k0, causal, window)) continue;   // uniform per block
     __syncthreads();                   // previous tile's K, V, dS consumed
-    load_tile<T, D>(Kt, Ks, Kb, k0, Skv, tid);
-    load_tile<T, D>(Vt, nullptr, Vb, k0, Skv, tid);
+    load_tile<D>(Kt, Ks, Kb, k0, Skv, tid);
+    load_tile<D>(Vt, nullptr, Vb, k0, Skv, tid);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -235,10 +231,10 @@ dq_kernel(const T* __restrict__ Q, const T* __restrict__ Kg,
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-dkdv_kernel(const T* __restrict__ Q, const T* __restrict__ Kg,
-            const T* __restrict__ Vg, const T* __restrict__ dO,
+dkdv_kernel(const float* __restrict__ Q, const float* __restrict__ Kg,
+            const float* __restrict__ Vg, const float* __restrict__ dO,
             const float* __restrict__ LSE, const float* __restrict__ DELTA,
             float* __restrict__ dK, float* __restrict__ dV, int H, int KH,
             int Sq, int Skv, int causal, int window, float scale) {
@@ -262,8 +258,8 @@ dkdv_kernel(const T* __restrict__ Q, const T* __restrict__ Kg,
   const int k0 = kj * BKV;
   const size_t bkv = (size_t)b * KH + kvh;
 
-  load_tile<T, D>(Kt, nullptr, Kg + bkv * Skv * D, k0, Skv, tid);
-  load_tile<T, D>(Vt, nullptr, Vg + bkv * Skv * D, k0, Skv, tid);
+  load_tile<D>(Kt, nullptr, Kg + bkv * Skv * D, k0, Skv, tid);
+  load_tile<D>(Vt, nullptr, Vg + bkv * Skv * D, k0, Skv, tid);
 
   float dk[4][DT], dv[4][DT];
 #pragma unroll
@@ -274,14 +270,14 @@ dkdv_kernel(const T* __restrict__ Q, const T* __restrict__ Kg,
   const int nq = (Sq + BQ - 1) / BQ;
   for (int g = 0; g < G; ++g) {
     const size_t bh = (size_t)b * H + kvh * G + g;
-    const T* Qb = Q + bh * Sq * D;
-    const T* dOb = dO + bh * Sq * D;
+    const float* Qb = Q + bh * Sq * D;
+    const float* dOb = dO + bh * Sq * D;
     for (int qi = 0; qi < nq; ++qi) {
       const int q0 = qi * BQ;
       if (!tile_live(q0, k0, causal, window)) continue;  // uniform per block
       __syncthreads();                 // previous tile's operands consumed
-      load_tile<T, D>(Qt, Qs, Qb, q0, Sq, tid);
-      load_tile<T, D>(dOt, dOs, dOb, q0, Sq, tid);
+      load_tile<D>(Qt, Qs, Qb, q0, Sq, tid);
+      load_tile<D>(dOt, dOs, dOb, q0, Sq, tid);
       if (tid < BQ) {
         const bool in = q0 + tid < Sq;
         Ls[tid] = in ? LSE[bh * Sq + q0 + tid] : 0.f;
@@ -343,13 +339,15 @@ struct Args {
 
 // Both kernels need more than 48 KB of shared memory at D = 64 and above,
 // so the opt-in is made before every launch.
-template <typename T, int D, bool DKDV>
+template <int D, bool DKDV>
 int launch(const Args& a) {
-  const T *q = static_cast<const T*>(a.q), *k = static_cast<const T*>(a.k),
-          *v = static_cast<const T*>(a.v), *dout = static_cast<const T*>(a.dout);
+  const float *q = static_cast<const float*>(a.q),
+              *k = static_cast<const float*>(a.k),
+              *v = static_cast<const float*>(a.v),
+              *dout = static_cast<const float*>(a.dout);
   if constexpr (DKDV) {
     constexpr size_t smem = dkdv_smem<D>();
-    auto kern = dkdv_kernel<T, D>;
+    auto kern = dkdv_kernel<D>;
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -359,7 +357,7 @@ int launch(const Args& a) {
                                        a.window, a.scale);
   } else {
     constexpr size_t smem = dq_smem<D>();
-    auto kern = dq_kernel<T, D>;
+    auto kern = dq_kernel<D>;
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -383,10 +381,13 @@ int dispatch(int D, int is_bf16, const Args& a) {
                                           a.delta, a.o1, a.o2, a.B, a.H,    \
                                           a.KH, a.Sq, a.Skv, a.causal,      \
                                           a.window, a.scale, a.stream)      \
-                     : launch<float, DD, true>(a);                          \
+                     : launch<DD, true>(a);                                 \
     else                                                                   \
-      return is_bf16 ? launch<__nv_bfloat16, DD, false>(a)                 \
-                     : launch<float, DD, false>(a);
+      return is_bf16 ? dq90::launch<DD>(a.q, a.k, a.v, a.dout, a.lse,     \
+                                        a.delta, a.o1, a.B, a.H, a.KH,      \
+                                        a.Sq, a.Skv, a.causal, a.window,    \
+                                        a.scale, a.stream)                  \
+                     : launch<DD, false>(a);
   switch (D) {
     FB_CASE(16)
     FB_CASE(32)
@@ -405,7 +406,7 @@ int dispatch(int D, int is_bf16, const Args& a) {
 // q/dout (B,H,Sq,D) and k/v (B,KH,Skv,D) of one type (is_bf16 selects bf16,
 // else fp32); lse/delta (B,H,Sq) fp32; outputs fp32: dk/dv (B,KH,Skv,D),
 // dq (B,H,Sq,D).  D must be 16, 32, 64, 80 or 128 and KH must divide H;
-// bf16 dk/dv needs q, k, v and dout 16-byte aligned (TMA).
+// bf16 needs q, k, v and dout 16-byte aligned (TMA).
 // Return cudaGetLastError() (or the error of the tensor-map encoding or of
 // the shared-memory opt-in).
 extern "C" int flash_dkdv(const void* q, const void* k, const void* v,

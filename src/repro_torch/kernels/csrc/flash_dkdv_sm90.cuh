@@ -68,16 +68,6 @@ __device__ __forceinline__ bool live(int q0, int k0, int rows, int causal,
   return ok;
 }
 
-// hi = bf16(x), lo = bf16(x - hi), packed pairwise as register-A fragments
-__device__ __forceinline__ void split_pack(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const __nv_bfloat162 r = __floats2bfloat162_rn(
-      x0 - __low2float(h), x1 - __high2float(h));
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&r);
-}
-
 // P^T = exp2(S^T scale log2(e) - lse log2(e)) in place of S^T, on the
 // accumulator of m64n64k16 (rows: kv, columns: q); where MASK, p is zeroed
 // outside the visible q columns [lo, hi] of each row (offsets from the
@@ -110,35 +100,6 @@ __device__ __forceinline__ void dsoft(const float* p, float* dp,
     for (int e = 0; e < 4; ++e)
       dp[4 * i + e] =
           p[4 * i + e] * (dp[4 * i + e] - ((e & 1) ? d.y : d.x)) * scale;
-  }
-}
-
-// One operand of dV += P^T dO or dK += dS^T Q as hi + lo bf16 register
-// fragments, issued against the MN-major tile at `b` (not committed).
-template <int D>
-__device__ __forceinline__ void issue_split(float* acc, const float* x,
-                                            uint32_t b) {
-  using SL = Slabs<D>;
-  constexpr int W0 = SL::width(0), W1 = SL::width(SL::N - 1);
-  uint32_t hi[BQ / 16][4], lo[BQ / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < BQ / 16; ++kk)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      split_pack(x[8 * kk + 2 * j], x[8 * kk + 2 * j + 1], hi[kk][j],
-                 lo[kk][j]);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < BQ / 16; ++kk) {
-    const uint64_t d0 = desc_mnmajor(b + kk * 32 * W0, W0);
-    mma_rs<W0>(acc, hi[kk], d0);
-    mma_rs<W0>(acc, lo[kk], d0);
-    if constexpr (SL::N == 2) {
-      const uint64_t d1 =
-          desc_mnmajor(b + SL::offset(1, BQ) + kk * 32 * W1, W1);
-      mma_rs<W1>(acc + 32, hi[kk], d1);
-      mma_rs<W1>(acc + 32, lo[kk], d1);
-    }
   }
 }
 
@@ -304,12 +265,12 @@ dkdv_kernel(__grid_constant__ const Maps maps,
         }
 
         // ---- dV += P^T dO; dS^T while it runs; dK += dS^T Q
-        issue_split<D>(dv, s, ost);
+        issue_split<D, BQ>(dv, s, ost);
         wgmma_commit();
         wgmma_wait<1>();               // dP^T is complete
         fence_regs<BQ / 2>(dp);
         dsoft(s, dp, L + BQ, cl, scale);
-        issue_split<D>(dk, dp, qst);
+        issue_split<D, BQ>(dk, dp, qst);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs<D / 2>(dk);

@@ -1,18 +1,20 @@
-// Hopper (sm_90a) building blocks shared by the tensor-core attention
-// bodies (flash_fwd_sm90.cuh, flash_dkdv_sm90.cuh): mbarriers, TMA tile
-// loads, wgmma shared-memory descriptors and the wgmma instructions
-// themselves, all as inline PTX (no CUTLASS/CuTe headers, so a plain nvcc
-// build takes seconds), and the host-side encoding of TMA tensor maps.
+// Hopper (sm_90a) building blocks shared by the tensor-core bodies
+// (flash_fwd_sm90.cuh, flash_dkdv_sm90.cuh, flash_dq_sm90.cuh,
+// systolic_matmul_sm90.cuh): mbarriers, TMA tile loads, wgmma shared-memory
+// descriptors and the wgmma instructions themselves (bf16 and TF32), all
+// as inline PTX (no CUTLASS/CuTe headers, so a plain nvcc build takes
+// seconds), and the host-side encoding of TMA tensor maps.
 //
-// Tiles are bf16, row-major in device memory, and copied by TMA into shared
-// memory in "slabs" of at most 64 columns: a head dim D is cut into
-// 64-wide slabs plus one 16- or 32-wide remainder (16 -> [16], 32 -> [32],
-// 64 -> [64], 80 -> [64, 16], 128 -> [64, 64]).  A slab of width w keeps
-// each row in 2w bytes with the matching TMA swizzle (128B, 64B or 32B),
-// so that one region serves wgmma both as a K-major operand (rows = M or N,
-// the head dim = K) and as an MN-major one (rows = K, the head dim = N).
-// Every slab starts on a 1024-byte boundary, the period of the widest
-// swizzle.
+// Attention tiles are bf16, row-major in device memory, and copied by TMA
+// into shared memory in "slabs" of at most 64 columns: a head dim D is cut
+// into 64-wide slabs plus one 16- or 32-wide remainder (16 -> [16],
+// 32 -> [32], 64 -> [64], 80 -> [64, 16], 128 -> [64, 64]).  A slab of
+// width w keeps each row in 2w bytes with the matching TMA swizzle (128B,
+// 64B or 32B), so that one region serves wgmma both as a K-major operand
+// (rows = M or N, the head dim = K) and as an MN-major one (rows = K, the
+// head dim = N).  Every slab starts on a 1024-byte boundary, the period of
+// the widest swizzle.  The descriptors take the slab's width in bf16
+// columns; an fp32 (TF32) slab of 2w bytes is passed as width w.
 #pragma once
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -99,6 +101,17 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       "tx::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2)
+      : "memory");
+}
+
+// One box of a 2-D tensor map (coordinates innermost first).
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_"
+      "tx::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -297,6 +310,83 @@ __device__ __forceinline__ void mma_ss(float* d, uint64_t da, uint64_t db,
     mma_ss_n64(d, da, db, accumulate);
 }
 
+// hi = bf16(x), lo = bf16(x - hi), packed pairwise as register-A
+// fragments: x = hi + lo to about 16 mantissa bits
+__device__ __forceinline__ void split_pack(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const __nv_bfloat162 r = __floats2bfloat162_rn(
+      x0 - __low2float(h), x1 - __high2float(h));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// acc += X B with X (64 x ROWS, an m64nROWSk16 accumulator in registers)
+// as hi + lo bf16 register fragments and B (ROWS x D) the MN-major tile at
+// `b` (ROWS rows a slab): two wgmma a k16 step and slab (not committed).
+template <int D, int ROWS>
+__device__ __forceinline__ void issue_split(float* acc, const float* x,
+                                            uint32_t b) {
+  using SL = Slabs<D>;
+  constexpr int W0 = SL::width(0), W1 = SL::width(SL::N - 1);
+  uint32_t hi[ROWS / 16][4], lo[ROWS / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < ROWS / 16; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      split_pack(x[8 * kk + 2 * j], x[8 * kk + 2 * j + 1], hi[kk][j],
+                 lo[kk][j]);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < ROWS / 16; ++kk) {
+    const uint64_t d0 = desc_mnmajor(b + kk * 32 * W0, W0);
+    mma_rs<W0>(acc, hi[kk], d0);
+    mma_rs<W0>(acc, lo[kk], d0);
+    if constexpr (SL::N == 2) {
+      const uint64_t d1 =
+          desc_mnmajor(b + SL::offset(1, ROWS) + kk * 32 * W1, W1);
+      mma_rs<W1>(acc + 32, hi[kk], d1);
+      mma_rs<W1>(acc + 32, lo[kk], d1);
+    }
+  }
+}
+
+// D (+)= A * B in TF32 with fp32 accumulation, m64n128k8: A (64 x 8) and
+// B (128 x 8) in shared memory, both K-major (TF32 has no MN-major form);
+// each operand word is read as TF32 (its low 13 mantissa bits ignored).
+__device__ __forceinline__ void mma_tf32_n128(float* d, uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // --------------------------------------------------------- host side
 // Opts `kern` in to `bytes` of dynamic shared memory once per device (the
 // call costs microseconds, a launch of these kernels tens of them); `done`
@@ -354,6 +444,31 @@ static int make_map(CUtensorMap* map, const void* base, int D, int S,
                                           : CU_TENSOR_MAP_SWIZZLE_32B;
   CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                   const_cast<void*>(base), dims, strides, box, estr,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Map of a contiguous fp32 matrix (rows, cols), cols a multiple of 4, that
+// copies boxes of `box_rows` rows times `box_cols` columns (4 box_cols
+// bytes: 128, 64 or 32, with the matching swizzle); rows past `rows` read
+// as zero.  Returns 0, or a CUDA error code.
+static int make_map_f32(CUtensorMap* map, const float* base, int cols,
+                        int rows, int box_cols, int box_rows) {
+  EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  if (reinterpret_cast<uintptr_t>(base) % 16 || cols % 4)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUtensorMapSwizzle sw = box_cols == 32   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : box_cols == 16 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                 : CU_TENSOR_MAP_SWIZZLE_32B;
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                  const_cast<float*>(base), dims, strides, box, estr,
                   CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

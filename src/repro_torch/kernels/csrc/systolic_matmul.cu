@@ -7,15 +7,16 @@
 // and share nothing, so here one block owns one C tile and walks k in a
 // loop with the accumulator in registers; C is written once.
 //
-// Semantics kept: inputs (fp32 or bf16) are upcast to fp32 BEFORE the
-// product, every product and sum is a true fp32 FMA (no TF32, no bf16
-// tensor-core product: the fp32 parity tolerance of 1e-4*max|ref| would not
-// survive TF32's 10-bit mantissa), and the result is rounded once to the
-// output type.
+// Bodies: fp32 inputs run the tensor-core body of systolic_matmul_sm90.cuh
+// (3xTF32 on wgmma: each operand split into two TF32 words, three
+// products, about 21 mantissa bits of each product, within the fp32 parity
+// tolerance of 1e-4*max|ref| where one TF32 product is not); bf16 inputs
+// run the FMA body in this file.  Both accumulate in fp32 and round once
+// to the output type.
 //
-// Bound: operations.  M=N=K=4096 in fp32 is 137 GFLOP against 201 MB of
-// compulsory traffic, far above the card's fp32 ridge, so the yardstick is
-// the fp32 FMA rate outside the tensor cores.
+// FMA body (bf16).  Inputs are upcast to fp32 BEFORE the product and every
+// product and sum is a true fp32 FMA; the yardstick is the fp32 FMA rate
+// outside the tensor cores.
 //
 // Design: 128x128 C tile per block of 256 threads, k tile of 16, both
 // operand tiles staged in shared memory as fp32 (A transposed, so both are
@@ -28,6 +29,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "systolic_matmul_sm90.cuh"
+
 namespace {
 
 constexpr int BM = 128, BN = 128, BK = 16, NT = 256;
@@ -35,21 +38,14 @@ constexpr int LDS = BM + 4;          // padded row, keeps float4 alignment
 constexpr int A_PER_T = BM * BK / NT;  // 8 elements of the A tile per thread
 constexpr int B_PER_T = BK * BN / NT;  // 8 elements of the B tile per thread
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_zero();
-template <> __device__ __forceinline__ float from_zero<float>() { return 0.f; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_zero<__nv_bfloat16>() {
-  return __float2bfloat16_rn(0.f);
-}
+using TIn = __nv_bfloat16;
+
 __device__ __forceinline__ void from_f32(float x, float* p) { *p = x; }
 __device__ __forceinline__ void from_f32(float x, __nv_bfloat16* p) {
   *p = __float2bfloat16_rn(x);
 }
 
-template <typename TIn, typename TOut>
+template <typename TOut>
 __global__ void __launch_bounds__(NT)
 mm_kernel(const TIn* __restrict__ A, const TIn* __restrict__ B,
           TOut* __restrict__ C, int M, int N, int K) {
@@ -68,7 +64,7 @@ mm_kernel(const TIn* __restrict__ A, const TIn* __restrict__ B,
   // written to shared memory, so nothing waits on these loads before the
   // FMAs of the current tile have been issued
   TIn ra[A_PER_T], rb[B_PER_T];
-  const TIn zero = from_zero<TIn>();
+  const TIn zero = __float2bfloat16_rn(0.f);
 
   auto fetch = [&](int k0) {
 #pragma unroll
@@ -84,9 +80,9 @@ mm_kernel(const TIn* __restrict__ A, const TIn* __restrict__ B,
   };
   auto stage = [&]() {
 #pragma unroll
-    for (int i = 0; i < A_PER_T; ++i) As[a_k][a_m + 16 * i] = to_f32(ra[i]);
+    for (int i = 0; i < A_PER_T; ++i) As[a_k][a_m + 16 * i] = __bfloat162float(ra[i]);
 #pragma unroll
-    for (int i = 0; i < B_PER_T; ++i) Bs[b_k + 2 * i][b_n] = to_f32(rb[i]);
+    for (int i = 0; i < B_PER_T; ++i) Bs[b_k + 2 * i][b_n] = __bfloat162float(rb[i]);
   };
 
   float acc[8][8];
@@ -128,11 +124,11 @@ mm_kernel(const TIn* __restrict__ A, const TIn* __restrict__ B,
   }
 }
 
-template <typename TIn, typename TOut>
+template <typename TOut>
 int launch(const void* a, const void* b, void* c, int M, int N, int K,
            cudaStream_t stream) {
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  mm_kernel<TIn, TOut><<<grid, NT, 0, stream>>>(
+  mm_kernel<TOut><<<grid, NT, 0, stream>>>(
       static_cast<const TIn*>(a), static_cast<const TIn*>(b),
       static_cast<TOut*>(c), M, N, K);
   return static_cast<int>(cudaGetLastError());
@@ -140,17 +136,33 @@ int launch(const void* a, const void* b, void* c, int M, int N, int K,
 
 }  // namespace
 
-// Launches on `stream`, does not synchronise, allocates nothing.
-// in_bf16 / out_bf16: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError().
+// Floats of scratch that `systolic_matmul` needs: 2 (M + N) Kp for fp32
+// inputs (the split operands, Kp = K rounded up to 16), none for bf16.
+extern "C" long long systolic_matmul_scratch(int M, int N, int K,
+                                             int in_bf16) {
+  return in_bf16 ? 0 : mm90::scratch_floats(M, N, K);
+}
+
+// Launches on `stream`, does not synchronise, allocates nothing: fp32
+// inputs need `scratch` of systolic_matmul_scratch() floats, 16-byte
+// aligned (the split pre-pass writes it, TMA reads it); bf16 inputs ignore
+// it.
+// in_bf16 / out_bf16: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError()
+// (or the error of the tensor-map encoding or of the shared-memory opt-in).
 extern "C" int systolic_matmul(const void* a, const void* b, void* c, int M,
                                int N, int K, int in_bf16, int out_bf16,
-                               void* stream) {
+                               void* scratch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M <= 0 || N <= 0 || K <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (in_bf16) {
-    return out_bf16 ? launch<__nv_bfloat16, __nv_bfloat16>(a, b, c, M, N, K, s)
-                    : launch<__nv_bfloat16, float>(a, b, c, M, N, K, s);
+    return out_bf16 ? launch<__nv_bfloat16>(a, b, c, M, N, K, s)
+                    : launch<float>(a, b, c, M, N, K, s);
   }
-  return out_bf16 ? launch<float, __nv_bfloat16>(a, b, c, M, N, K, s)
-                  : launch<float, float>(a, b, c, M, N, K, s);
+  if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const float *fa = static_cast<const float*>(a),
+              *fb = static_cast<const float*>(b);
+  float* w = static_cast<float*>(scratch);
+  return out_bf16 ? mm90::launch(fa, fb, static_cast<__nv_bfloat16*>(c), w, M,
+                                 N, K, s)
+                  : mm90::launch(fa, fb, static_cast<float*>(c), w, M, N, K, s);
 }

@@ -1,9 +1,9 @@
 """Flash attention — hand-written CUDA kernels for the forward
 (``csrc/flash_fwd.cu``: online softmax) and the backward
 (``csrc/flash_bwd.cu``: dk/dv and dq), each with its plain PyTorch version.
-bf16 forward and dk/dv run tensor-core bodies (``csrc/flash_fwd_sm90.cuh``,
-``csrc/flash_dkdv_sm90.cuh``: wgmma on TMA-fed tiles); fp32 inputs, and the
-dq kernel of either type, run fp32-FMA bodies.
+bf16 inputs run tensor-core bodies (``csrc/flash_fwd_sm90.cuh``,
+``csrc/flash_dkdv_sm90.cuh``, ``csrc/flash_dq_sm90.cuh``: wgmma on TMA-fed
+tiles); fp32 inputs run fp32-FMA bodies.
 
 Layout: (B, H, S, D).  GQA is handled by index (kv head ``h // G``); no KV
 repeat is ever materialised.  Causal / sliding-window tiles that are fully

@@ -5,10 +5,13 @@ The paper's SoC streams A/B tiles through AXI DMAs into a weight-stationary
 systolic array.  Here the "array" is a hand-written CUDA kernel
 (``csrc/systolic_matmul.cu``): one thread block owns one C tile and sweeps
 k with an fp32 accumulator in registers, C written once — the
-output-stationary schedule of the reference.  ``bm/bn/bk`` keep the
-reference's clamping and divisibility contract because they define the
-modeled DMA burst list (``ops.transactions``); the CUDA kernel picks its
-own internal tile and masks ragged edges, so any M, N, K runs.
+output-stationary schedule of the reference.  fp32 operands run a
+tensor-core body (``csrc/systolic_matmul_sm90.cuh``: 3xTF32 on ``wgmma``,
+after a pre-pass that splits each operand into two TF32 words in scratch
+this wrapper allocates); bf16 operands an fp32-FMA body.  ``bm/bn/bk``
+keep the reference's clamping and divisibility contract because they
+define the modeled DMA burst list (``ops.transactions``); the CUDA kernel
+picks its own internal tile and masks ragged edges, so any M, N, K runs.
 
 ``matmul`` launches the kernel for CUDA tensors (or raises) and takes
 ``matmul_plain`` — the same blocked arithmetic in tensor ops — only for
@@ -63,13 +66,16 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
     return out.to(out_dtype or a.dtype)
 
 
-def _fn():
-    fn = _build.load("systolic_matmul").systolic_matmul
-    if not fn.argtypes:
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+def _lib():
+    lib = _build.load("systolic_matmul")
+    if not lib.systolic_matmul.argtypes:
+        lib.systolic_matmul.argtypes = ([ctypes.c_void_p] * 3
+                                        + [ctypes.c_int] * 5
+                                        + [ctypes.c_void_p] * 2)
+        lib.systolic_matmul.restype = ctypes.c_int
+        lib.systolic_matmul_scratch.argtypes = [ctypes.c_int] * 4
+        lib.systolic_matmul_scratch.restype = ctypes.c_longlong
+    return lib
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bn: int = 128,
@@ -94,13 +100,19 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bn: int = 128,
         raise TypeError(f"kernel writes float32 or bfloat16, not {out_dtype}")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("kernel takes contiguous row-major operands")
-    fn = _fn()
+    lib = _lib()
+    in_bf16 = int(a.dtype == torch.bfloat16)
     with torch.cuda.device(a.device):
         c = torch.empty((M, N), dtype=out_dtype, device=a.device)
-        err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), M, N, K,
-                 int(a.dtype == torch.bfloat16),
-                 int(out_dtype == torch.bfloat16),
-                 torch.cuda.current_stream().cuda_stream)
+        # the fp32 body's split operands, written by its pre-pass
+        n = lib.systolic_matmul_scratch(M, N, K, in_bf16)
+        scratch = torch.empty(n, dtype=torch.float32, device=a.device) \
+            if n else None
+        err = lib.systolic_matmul(
+            a.data_ptr(), b.data_ptr(), c.data_ptr(), M, N, K, in_bf16,
+            int(out_dtype == torch.bfloat16),
+            scratch.data_ptr() if n else None,
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"systolic_matmul launch refused: CUDA error {err}")
     launches += 1

@@ -9,7 +9,8 @@ card.  Run them on a GPU machine with
 
 ``python3 chip_smoke.py`` makes the same comparisons (and more shapes)
 without pytest.  Tolerances are the reference's own: matmul 1e-4 (fp32) /
-1.0 (bf16) times max(1, max|ref|); attention 2e-5 (fp32) / 3e-2 (bf16);
+1.0 (bf16) times max(1, max|ref|), the fp32 (3xTF32) body held to half of
+it; attention 2e-5 (fp32) / 3e-2 (bf16);
 attention gradients 5e-4 times max(1, max|plain|) (both sides take the
 same upcast inputs and accumulate in fp32); the SSD and WKV-6 scans the
 reference's 1e-3 times max(1, max|plain|).
@@ -98,6 +99,42 @@ def test_flash_fwd_kernel_on_card(card, B, H, KH, S, D, causal, window, dt):
     assert float((lse - p_lse).abs().max()) < 1e-4
 
 
+@pytest.mark.parametrize("M,N,K,tile", [
+    (100, 300, 250, 50),        # K no multiple of 8, M, N ragged for 128x128
+    (64, 48, 4096, 16),         # long K, one C tile
+    (257, 131, 77, 1),
+])
+def test_matmul_fp32_split_body_on_card(card, M, N, K, tile):
+    """The fp32 body (split pre-pass + 3xTF32) at shapes its tiles do not
+    divide, within half the fp32 gate (the rule that keeps it), and with an
+    operand that starts 4 bytes past a 16-byte boundary: the pre-pass copies
+    it, so it runs like any other."""
+    rng = np.random.default_rng(6)
+    a_np = rng.normal(size=(M, K)).astype(np.float32)
+    b_np = rng.normal(size=(K, N)).astype(np.float32)
+    a = torch.from_numpy(a_np).to(card)
+    b = torch.from_numpy(b_np).to(card)
+    a_off = torch.empty(M * K + 1, device=card)[1:].view(M, K)
+    a_off.copy_(a)
+    assert a_off.data_ptr() % 16 == 4 and a_off.is_contiguous()
+    ref = MMref.matmul_ref(a, b).float()
+    plain = MM.matmul_plain(a, b, bm=tile, bn=tile, bk=tile)
+    tol = 1e-4 * max(1.0, float(ref.abs().max()))
+    for x in (a, a_off):
+        before = MM.launches
+        got = MM.matmul(x, b, bm=tile, bn=tile, bk=tile)
+        torch.cuda.synchronize()
+        assert MM.launches == before + 1
+        assert got.dtype == torch.float32 and torch.isfinite(got).all()
+        assert float((got - ref).abs().max()) < 0.5 * tol
+        assert float((got - plain).abs().max()) < 0.5 * tol
+    got16 = MM.matmul(a, b, bm=tile, bn=tile, bk=tile,
+                      out_dtype=torch.bfloat16)
+    assert got16.dtype == torch.bfloat16
+    assert float((got16.float() - plain.bfloat16().float()).abs().max()) \
+        <= 2 ** -7 * float(plain.abs().max())
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     a = torch.ones(16, 16, device=card)
     with pytest.raises(TypeError):
@@ -137,6 +174,11 @@ BWD_ROWS = [
     (1, 8, 2, 256, 64, True, 0, torch.bfloat16),
     (1, 4, 2, 128, 80, True, 48, torch.bfloat16),
     (1, 4, 1, 96, 32, True, 8, torch.bfloat16),
+    # the dq tensor-core body: a length ragged for its 192-row q tile, D=128
+    # with G=4 and a window, D=80 without a mask
+    (1, 8, 2, 224, 64, True, 0, torch.bfloat16),
+    (1, 8, 2, 160, 128, True, 32, torch.bfloat16),
+    (1, 4, 2, 96, 80, False, 0, torch.bfloat16),
 ]
 
 
@@ -171,6 +213,23 @@ def test_flash_bwd_kernels_on_card(card, B, H, KH, S, D, causal, window, dt):
         tol = 5e-4 * max(1.0, float(plain.abs().max()))
         assert float((got - plain).abs().max()) < tol
         assert float((got - auto).abs().max()) < tol
+
+
+def test_bf16_dq_counts_one_launch_per_call(card):
+    """The bf16 dq route adds one to ``dq_launches`` per call and nothing to
+    the other counts."""
+    rng = np.random.default_rng(9)
+    mk = lambda h: torch.from_numpy(rng.normal(
+        size=(1, h, 128, 64)).astype(np.float32)).to(card, torch.bfloat16)
+    q, k, v, dout = mk(8), mk(2), mk(2), mk(8)
+    lse = torch.zeros(1, 8, 128, device=card)
+    delta = torch.zeros(1, 8, 128, device=card)
+    before = (K.launches, K.dkdv_launches, K.dq_launches)
+    for n in (1, 2):
+        K.flash_dq(q, k, v, dout, lse, delta, causal=True)
+        torch.cuda.synchronize()
+        assert (K.launches, K.dkdv_launches, K.dq_launches) == (
+            before[0], before[1], before[2] + n)
 
 
 def test_bwd_wrappers_refuse_what_the_kernels_do_not_take(card):
