@@ -10,12 +10,19 @@ card, and drives the port's three paths:
 
   * co-verification — ``coverify()`` over the oracle / interpret / compiled
     backends for the systolic matmul and the flash-attention forward,
-    through the congestion-arbitrated bridge, then the committed
-    single-device golden trace and counter stream regenerated byte for byte;
+    through the congestion-arbitrated bridge (``compiled``: the oracle's
+    maths through ``torch.compile``, built once before the timed
+    iterations, its build seconds on a line of their own), then the
+    committed single-device golden trace and counter stream regenerated
+    byte for byte;
   * training — llama3.2-1b at full width (16 layers, seq 2048, batch 2,
     bf16 compute, ``attn_impl="pallas"``): one loss + backward with the
     kernels against the naive attention, then three ``Trainer`` steps with
-    checkpointing, counting the attention kernels' launches;
+    checkpointing, counting the attention kernels' launches; then
+    rwkv6-7b (2 layers) and zamba2-2.7b (6 layers) at full width, one
+    sequence of 1024 tokens: one loss + backward with the scans' kernels
+    on the forward against the same with the scans through the twins of
+    the reference's lax scans, and one timed ``make_train_step`` step;
   * serving — rwkv6-7b and zamba2-2.7b at full width and depth (bf16
     weights) through ``ServingEngine``: eight requests rung in through the
     CSR doorbell, prefill on the WKV-6 (rwkv6) and SSD + attention
@@ -65,8 +72,10 @@ from repro_torch.kernels.flash_attention.sweep import (_inputs as fa_inputs,
                                                        flash_backends,
                                                        flash_firmware)
 from repro_torch.kernels.mamba2_scan import kernel as SSDK
+from repro_torch.kernels.mamba2_scan import ops as ssd_ops
 from repro_torch.kernels.mamba2_scan import ref as SSDref
 from repro_torch.kernels.rwkv6_wkv import kernel as WKVK
+from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
 from repro_torch.kernels.rwkv6_wkv import ref as WKVref
 from repro_torch.kernels.systolic_matmul import kernel as MMK
 from repro_torch.kernels.systolic_matmul import ref as MMref
@@ -121,6 +130,27 @@ def time_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         out.append(t0.elapsed_time(t1))
     return statistics.median(out)
+
+
+def device_ms_by_kernel(fn, reps: int = 5) -> dict:
+    """Device time (ms) of each CUDA kernel that one call of ``fn``
+    launches, from ``torch.profiler`` over ``reps`` calls: how a wrapper
+    that launches several kernels (a pre-pass, a three-launch scan) spends
+    its time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_time_total > 0:
+            name = re.sub(r"\(anonymous namespace\)::|^void ", "", ev.key)
+            name = re.match(r"[\w:]+(<[^()]*>)?", name).group(0)
+            out[name] = out.get(name, 0.0) + ev.device_time_total / reps / 1e3
+    return out
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -191,13 +221,15 @@ def phase_build() -> None:
     emit({"phase": "build", "built": sorted(libs),
           "seconds": time.perf_counter() - t0,
           "dir": str(_build.BUILD_DIR.relative_to(ROOT)),
-          # the tensor-core attention bodies' resources, when built here
+          # the tensor-core bodies' resources, when built here
           "ptxas": {k: v for lib in ("flash_fwd", "flash_bwd",
-                                     "systolic_matmul")
+                                     "systolic_matmul", "ssd_scan")
                     for k, v in ptxas_resources(
                         _build.logs.get(lib, "")).items()
-                    if any(ns in k for ns in ("fwd90::", "dkdv90::",
-                                              "dq90::", "mm90::"))}})
+                    if any(ns in k for ns in ("fwd90::", "fwd32::",
+                                              "dkdv90::", "dq90::", "mm90::",
+                                              "chunk_state", "state_pass",
+                                              "chunk_out"))}})
 
 
 # ------------------------------------------------------------------ phase 3
@@ -387,6 +419,31 @@ def sdpa(q, k, v, causal: bool, window: int):
         return lambda: F.scaled_dot_product_attention(q, kr, vr, **kw)
 
 
+@true_fp32()
+def attention_one_tf32(q, k, v, causal: bool, window: int) -> torch.Tensor:
+    """The forward with one TF32 rounding of q, k, p and v before their
+    products (each product of two TF32 words exact in fp32, fp32 sums and
+    softmax): what a tensor-core body without the hi + lo split computes."""
+    B, H, S, D = q.shape
+    KH = k.shape[1]
+    G = H // KH
+    qg = tf32_round(q).reshape(B, KH, G, S, D)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg, tf32_round(k)) / D ** 0.5
+    pos = torch.arange(S, device=q.device)
+    m = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        m &= pos[None, :] <= pos[:, None]
+    if window:
+        m &= pos[None, :] > pos[:, None] - window
+    s = torch.where(m, s, torch.full_like(s, -1e30))
+    mx = s.amax(-1, keepdim=True)
+    p = torch.where(m, torch.exp(s - mx), torch.zeros_like(s))
+    del s
+    l = p.sum(-1, keepdim=True)
+    o = torch.einsum("bkgqs,bksd->bkgqd", tf32_round(p), tf32_round(v))
+    return (o / l).reshape(B, H, S, D)
+
+
 def check_flash(shape) -> dict:
     B, H, KH, S, D, causal, window, dt, blk = shape
     rng = np.random.default_rng(B * 7919 + H * 101 + KH * 13 + S + D)
@@ -417,8 +474,29 @@ def check_flash(shape) -> dict:
            "library_ms": time_ms(lib, reps)}
     es = q.element_size()
     nbytes = (2 * q.numel() + 2 * k.numel()) * es + lse.numel() * 4
-    row.update(bound(4.0 * D * live_pairs(S, S, causal, window) * B * H,
-                     nbytes, row["dtype"]))
+    flops = 4.0 * D * live_pairs(S, S, causal, window) * B * H
+    if dt == torch.float32:
+        # as for the fp32 matmul: the function's work at the TF32 rate
+        # (the tensor-core body); beside it the fp32 FMA bound and the
+        # bound of the three TF32 products the body runs
+        row.update(bound(flops, nbytes, "tf32"))
+        row["bound_ms_fma"] = bound(flops, nbytes, "float32")["bound_ms"]
+        row["bound_ms_3xtf32"] = bound(3 * flops, nbytes, "tf32")["bound_ms"]
+        # what one TF32 rounding of every operand would give, and the
+        # kernel's signed bias relative to |out|
+        one = attention_one_tf32(q, k, v, causal, window)
+        row["one_rounding_err_over_tol"] = max_err(one, p_out) / tol
+        del one
+        sign = torch.sign(p_out)
+        row["signed_rel_bias"] = float(((out - p_out) * sign).mean()) / float(
+            p_out.abs().mean())
+        del sign
+        if big and D <= 80:
+            # the split pre-pass and the product, each on its own
+            row["device_ms_by_kernel"] = device_ms_by_kernel(
+                lambda: FAK.flash_fwd(q, k, v, **kw))
+    else:
+        row.update(bound(flops, nbytes, row["dtype"]))
     if not (out.shape == q.shape and lse.shape == (B, H, S)
             and torch.isfinite(lse).all() and torch.isfinite(out.float()).all()):
         fail(f"flash_fwd {row['shape']}: non-finite or misshapen output")
@@ -426,6 +504,8 @@ def check_flash(shape) -> dict:
     if not (e_plain < tol and e_ref < tol and e_lse < 1e-4 * max(
             1.0, float(p_lse.abs().max()))):
         fail(f"flash_fwd {row}: outside tolerance")
+    if dt == torch.float32 and D <= 80 and row["err_over_tol"] >= SPLIT_RULE:
+        fail(f"flash_fwd {row}: the 3xTF32 body misses half its gate")
     return row
 
 
@@ -602,6 +682,38 @@ def ssd_flops(B, L, H, P, N, cl) -> float:
     return nc * (tri * N + H * (tri * P + 4.0 * cl * P * N))
 
 
+@true_fp32()
+def ssd_one_bf16(x, dt, B_, C_, A, D, cl):
+    """``ssd_scan_plain``'s arithmetic with each fp32 operand of a product
+    (M, x w, the incoming state; x, B and C where they are fp32) rounded
+    once to bf16: what the tensor-core body would compute without its
+    hi + lo pairs."""
+    r = lambda t: t.float().bfloat16().float()
+    Bsz, L, H, P = x.shape
+    N = B_.shape[-1]
+    xf, Bf, Cf = r(x), r(B_), r(C_)
+    state = torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    y = torch.empty((Bsz, L, H, P), dtype=torch.float32, device=x.device)
+    causal = torch.tril(torch.ones((cl, cl), dtype=torch.bool,
+                                   device=x.device))[None, :, :, None]
+    for c in range(L // cl):
+        rows = slice(c * cl, (c + 1) * cl)
+        xc, dtc, Bc, Cc = xf[:, rows], dt[:, rows], Bf[:, rows], Cf[:, rows]
+        cum = torch.cumsum(dtc * A, dim=1)
+        seg = cum[:, :, None, :] - cum[:, None, :, :]
+        M = torch.einsum("bin,bjn->bij", Cc, Bc)[..., None] * torch.where(
+            causal, torch.exp(torch.where(causal, seg, torch.zeros_like(seg))),
+            torch.zeros_like(seg)) * dtc[:, None, :, :]
+        y[:, rows] = (torch.einsum("bijh,bjhp->bihp", r(M), xc)
+                      + torch.einsum("bin,bhpn->bihp", Cc, r(state))
+                      * torch.exp(cum)[..., None]
+                      + D[None, None, :, None] * x[:, rows].float())
+        w = dtc * torch.exp(cum[:, -1:] - cum)
+        state = (state * torch.exp(cum[:, -1])[..., None, None]
+                 + torch.einsum("bjn,bjhp->bhpn", Bc, r(xc * w[..., None])))
+    return y, state
+
+
 def check_ssd(shape) -> dict:
     B, L, H, P, N, cl, dt_ = shape
     rng = np.random.default_rng(B * 13 + L + H * 5 + P + N)
@@ -627,14 +739,31 @@ def check_ssd(shape) -> dict:
            "plain_ms": time_ms(lambda: SSDK.ssd_scan_plain(x, dt, B_, C_, A,
                                                            D, **kw), 3),
            "library_ms": None,
-           "smem_bytes": SSDK.smem_bytes(cl, P, N)}
+           "smem_bytes": SSDK.smem_bytes(dt_ == torch.float32)}
     nbytes = (B * L * H * P * es + B * L * H * 4 + 2 * B * L * N * es + 2 * H * 4
               + B * L * H * P * 4 + B * H * P * N * 4)
-    row.update(bound(ssd_flops(B, L, H, P, N, cl), nbytes, "float32"))
+    flops = ssd_flops(B, L, H, P, N, cl)
+    # the body's products run on the tensor cores in bf16: the function's
+    # work at that rate (or its bytes); the fp32 FMA bound beside it
+    row.update(bound(flops, nbytes, "bfloat16"))
+    row["bound_ms_fma"] = bound(flops, nbytes, "float32")["bound_ms"]
+    row["err_over_tol"] = max(row["max_abs_err"], row["max_abs_err_ref"]) / tol
+    # what one bf16 rounding of the fp32 operands (M, x w, the incoming
+    # state; x, B and C too for fp32 inputs) would give
+    one = ssd_one_bf16(x, dt, B_, C_, A, D, cl)
+    row["one_rounding_err_over_tol"] = max(
+        max_err(a, b) for a, b in zip(one, plain)) / tol
+    del one
+    if L >= 1024:
+        # the three launches of one call, each on its own
+        row["device_ms_by_kernel"] = device_ms_by_kernel(
+            lambda: SSDK.ssd_scan(x, dt, B_, C_, A, D, **kw))
     if not all(torch.isfinite(t).all() for t in got):
         fail(f"ssd_scan {shape}: non-finite output")
     if not (row["max_abs_err"] < tol and row["max_abs_err_ref"] < tol):
         fail(f"ssd_scan {row}: outside tolerance")
+    if row["err_over_tol"] >= SPLIT_RULE:
+        fail(f"ssd_scan {row}: the hi + lo body misses half its gate")
     return row
 
 
@@ -663,7 +792,6 @@ def timed_ops(table: dict, spent: dict) -> dict:
             spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
             return out
         return run
-    # oracle and compiled are one callable: wrap each name on its own
     return {name: wrap(name, fn) for name, fn in table.items()}
 
 
@@ -737,18 +865,33 @@ def split_interpret(row: dict, kernel_s: float, copies_s: float) -> dict:
             "backend_call_other": max(0.0, call - kernel_s - copies_s)}
 
 
+def build_compiled(name: str, table: dict, inputs) -> dict:
+    """The ``compiled`` tier of a ``jit=True`` table on the card: a callable
+    of its own, built (``torch.compile``) by one call on the firmware's
+    inputs before ``coverify()``, so that no iteration pays the compile."""
+    if table["compiled"] is table["oracle"]:
+        fail(f"{name}: the compiled backend is the oracle callable")
+    t0 = time.perf_counter()
+    table["compiled"](*inputs)
+    return {"compiled_is_oracle": False,
+            "compiled_build_s": time.perf_counter() - t0}
+
+
 def phase_coverify_matmul(card: str, mm_rows) -> int:
     MMK.launches = 0
     FAK.launches = 0
     size, tile = MM_MAIN_CFG["size"], MM_MAIN_CFG["tile"]
-    table = matmul_backends(tile=tile, device="cuda")
+    rng = np.random.default_rng(size)
+    ab = [rng.normal(size=(size, size)).astype(np.float32) for _ in range(2)]
+    table = matmul_backends(tile=tile, device="cuda", jit=True)
+    tier = build_compiled("coverify_matmul", table, ab)
+    emit({"phase": "coverify_matmul_compiled_tier", "card": card, **tier})
     row = run_coverify(
         "coverify_matmul",
         lambda fb, op, be: matmul_firmware(fb, op, be, size=size, tile=tile),
         "mm", table, ("oracle", "interpret", "compiled"),
         CongestionConfig(**CONG), lambda: MMK.launches)
-    rng = np.random.default_rng(size)
-    ab = [rng.normal(size=(size, size)).astype(np.float32) for _ in range(2)]
+    row.update(tier)
     copies = copy_seconds(ab, (size, size))
     kern = mm_rows[MM_MAIN]["kernel_ms"] / 1e3
     row["split_interpret_s"] = split_interpret(row, kern, copies)
@@ -774,14 +917,17 @@ def phase_coverify_matmul(card: str, mm_rows) -> int:
 def phase_coverify_flash(card: str, fa_rows) -> int:
     FAK.launches = 0
     cfg = FA_MAIN_CFG
+    qkv = fa_inputs(cfg["batch"], cfg["heads"], cfg["seq"], cfg["dim"])
     table = flash_backends(bq=cfg["bq"], bk=cfg["bk"], causal=True,
-                           device="cuda")
+                           device="cuda", jit=True)
+    tier = build_compiled("coverify_flash", table, qkv)
+    emit({"phase": "coverify_flash_compiled_tier", "card": card, **tier})
     row = run_coverify(
         "coverify_flash",
         lambda fb, op, be: flash_firmware(fb, op, be, **cfg),
         "fa", table, ("oracle", "interpret", "compiled"),
         CongestionConfig(**CONG), lambda: FAK.launches)
-    qkv = fa_inputs(cfg["batch"], cfg["heads"], cfg["seq"], cfg["dim"])
+    row.update(tier)
     copies = copy_seconds(list(qkv), qkv[0].shape)
     kern = fa_rows[FA_MAIN]["kernel_ms"] / 1e3
     row["split_interpret_s"] = split_interpret(row, kern, copies)
@@ -1037,7 +1183,113 @@ def phase_train_llama(card: str) -> dict:
     return launches
 
 
-# ------------------------------------------------------------ phases 8, 9
+# ------------------------------------------------------------------ phase 8
+# ssm / hybrid training at full width, depth cut: rwkv6-7b to 2 of 32
+# layers, zamba2-2.7b to 6 of 54 (five Mamba-2 layers and one pass of the
+# shared attention block, attn_period 6); one sequence of 1024 tokens
+TRAIN_SSM = {"rwkv6-7b": dict(n_layers=2), "zamba2-2.7b": dict(n_layers=6)}
+TRAIN_SSM_SHAPE = dict(seq_len=1024, global_batch=1, seed=0)
+SCAN_TWINS = {"wkv_scan": (wkv_ops, wkv_ops.wkv_scan_twin),
+              "ssd_scan": (ssd_ops, ssd_ops.ssd_scan_twin)}
+
+
+def ssm_launches() -> dict:
+    return {"wkv_scan": WKVK.launches, "ssd_scan": SSDK.launches,
+            "flash_fwd": FAK.launches, "flash_dkdv": FAK.dkdv_launches,
+            "flash_dq": FAK.dq_launches}
+
+
+def phase_train_ssm(card: str) -> dict:
+    """One loss + backward of each config with the scans' kernels on the
+    forward (their wrappers' recompute backward) against the same with
+    the scans routed through the twins of the reference's lax scans (plain
+    autograd), then one ``make_train_step`` step, timed."""
+    total = {k: 0 for k in ssm_launches()}
+    dev = torch.device("cuda")
+    for arch, cut in TRAIN_SSM.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(get_config(arch), **cut)
+        flags = RunFlags(attn_impl="pallas")
+        opt = AdamWConfig(lr=1e-3, warmup_steps=20, total_steps=1)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(TRAIN_SSM_SHAPE["seed"])
+        state = make_train_state(cfg, gen)
+        n_params = sum(p.numel() for p in leaves(state["params"]))
+        data = SyntheticLMDataset(cfg.vocab_size, TRAIN_SSM_SHAPE["seq_len"],
+                                  TRAIN_SSM_SHAPE["global_batch"],
+                                  seed=TRAIN_SSM_SHAPE["seed"])
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in data.batch(0).items()}
+        routes = {}
+        for route, swap in (("kernels", {}), ("twins", SCAN_TWINS)):
+            before = ssm_launches()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with Swap(swap):
+                loss, _ = make_loss_fn(cfg, flags)(state["params"], batch)
+                grads = torch.autograd.grad(loss, leaves(state["params"]))
+            gnorm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+            routes[route] = {"loss": float(loss.detach()),
+                             "grad_norm": float(gnorm),
+                             "seconds": time.perf_counter() - t,
+                             "launches": {k: v - before[k] for k, v in
+                                          ssm_launches().items()}}
+            del loss, grads, gnorm
+        kr, tw = routes["kernels"], routes["twins"]
+        if not all(np.isfinite([r["loss"], r["grad_norm"]]).all()
+                   for r in routes.values()):
+            fail(f"train_ssm {arch}: non-finite loss or gradient norm {routes}")
+        if abs(kr["loss"] - tw["loss"]) > LOSS_RTOL * abs(tw["loss"]) or \
+                abs(kr["grad_norm"] - tw["grad_norm"]) > \
+                GNORM_RTOL * tw["grad_norm"]:
+            fail(f"train_ssm {arch}: kernel and twin routes disagree {routes}")
+
+        step_fn = make_train_step(cfg, flags, None, opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = ssm_launches()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, m = step_fn(state, batch)
+        e1.record()
+        torch.cuda.synchronize()
+        step = {k: v - before[k] for k, v in ssm_launches().items()}
+        if cfg.family == "ssm":
+            want = {"wkv_scan": cfg.n_layers}
+        else:
+            n_mamba = cfg.n_layers - cfg.n_layers // cfg.attn_period
+            want = {"ssd_scan": n_mamba, "flash_fwd": 1, "flash_dkdv": 1,
+                    "flash_dq": 1}
+        for k, n in want.items():
+            if kr["launches"][k] < n or step[k] < n:
+                fail(f"train_ssm {arch}: {k} launched {kr['launches'][k]} / "
+                     f"{step[k]} times, expected at least {n}")
+        if not np.isfinite(float(m["loss"])):
+            fail(f"train_ssm {arch}: non-finite loss in the step {m}")
+        for k in total:
+            total[k] += step[k]
+        emit({"phase": "train_ssm", "card": card, "arch": arch,
+              "config": {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                         "n_heads": cfg.n_heads, "head_dim": cfg.head_dim,
+                         "d_ff": cfg.d_ff, "vocab_size": cfg.vocab_size,
+                         "params": n_params},
+              "reduced": [f"n_layers {get_config(arch).n_layers} -> "
+                          f"{cfg.n_layers}"],
+              **TRAIN_SSM_SHAPE, "flags": dataclasses.asdict(flags),
+              "routes": routes, "tol": {"loss_rtol": LOSS_RTOL,
+                                        "grad_norm_rtol": GNORM_RTOL},
+              "step_ms": e0.elapsed_time(e1), "step_launches": step,
+              "step_metrics": {k: float(v) for k, v in m.items()},
+              "max_memory_allocated": torch.cuda.max_memory_allocated()})
+        del state, m, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+# ------------------------------------------------------------ phases 9, 10
 SERVE = dict(max_slots=4, max_len=2048, prompt_pad=128, batching="storm",
              n_requests=8, seed=0)
 # prompt lengths: every multiple of the 128-token bucket in 256-1536 (no
@@ -1325,7 +1577,10 @@ def kernel_entry(name, sources, replaces, main_row, rows, launches) -> dict:
             "max_abs_err": main_row["max_abs_err"],
             "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-            **{k: main_row[k] for k in ("bound_ms_fma", "bound_ms_3xtf32")
+            **{k: main_row[k] for k in ("bound_ms_fma", "bound_ms_3xtf32",
+                                        "one_rounding_err_over_tol",
+                                        "signed_rel_bias",
+                                        "device_ms_by_kernel")
                if k in main_row},
             "library_ms": main_row["library_ms"], "tol": main_row["tol"],
             **({"library": main_row["library"]} if "library" in main_row
@@ -1352,13 +1607,15 @@ def main() -> int:
     fa_launches = phase_coverify_flash(card, fa_rows)
     phase_golden()
     train = phase_train_llama(card)
+    ssm = phase_train_ssm(card)
     rwkv = phase_serve(card, "rwkv6-7b")
     zamba = phase_serve(card, "zamba2-2.7b")
     if mm_launches < 1 or fa_launches < 1 or min(train.values()) < 1 or \
-            min(rwkv.values()) < 1 or min(zamba.values()) < 1:
+            min(ssm.values()) < 1 or min(rwkv.values()) < 1 or \
+            min(zamba.values()) < 1:
         fail(f"main path missed a kernel: matmul={mm_launches} "
-             f"flash={fa_launches} train={train} serve_rwkv6={rwkv} "
-             f"serve_zamba2={zamba}")
+             f"flash={fa_launches} train={train} train_ssm={ssm} "
+             f"serve_rwkv6={rwkv} serve_zamba2={zamba}")
     src = "src/repro_torch/kernels/csrc/"
     ref = "src/repro/kernels/"
     emit({"kernels": [
@@ -1369,33 +1626,39 @@ def main() -> int:
                      mm_rows[MM_MAIN], mm_rows,
                      {"coverify_matmul": mm_launches}),
         kernel_entry("flash_fwd", [src + "flash_fwd.cu",
+                                   src + "flash_fwd_tf32_sm90.cuh",
                                    src + "flash_fwd_sm90.cuh",
                                    src + "sm90.cuh"],
                      ref + "flash_attention/kernel.py:109",
                      fa_rows[FA_MAIN], fa_rows,
                      {"coverify_flash": fa_launches,
                       "train_llama": train["flash_fwd"],
+                      "train_ssm": ssm["flash_fwd"],
                       "serve_zamba2": zamba["flash_fwd"]}),
         kernel_entry("flash_dkdv", [src + "flash_bwd.cu",
                                     src + "flash_dkdv_sm90.cuh",
                                     src + "sm90.cuh"],
                      ref + "flash_attention/kernel.py:186",
                      dkdv_rows[BWD_MAIN], dkdv_rows,
-                     {"train_llama": train["flash_dkdv"]}),
+                     {"train_llama": train["flash_dkdv"],
+                      "train_ssm": ssm["flash_dkdv"]}),
         kernel_entry("flash_dq", [src + "flash_bwd.cu",
                                   src + "flash_dq_sm90.cuh",
                                   src + "sm90.cuh"],
                      ref + "flash_attention/kernel.py:256",
                      dq_rows[BWD_MAIN], dq_rows,
-                     {"train_llama": train["flash_dq"]}),
+                     {"train_llama": train["flash_dq"],
+                      "train_ssm": ssm["flash_dq"]}),
         kernel_entry("ssd_scan", src + "ssd_scan.cu",
                      ref + "mamba2_scan/kernel.py:84",
                      ssd_rows[SSD_MAIN], ssd_rows,
-                     {"serve_zamba2": zamba["ssd_scan"]}),
+                     {"train_ssm": ssm["ssd_scan"],
+                      "serve_zamba2": zamba["ssd_scan"]}),
         kernel_entry("wkv_scan", src + "wkv_scan.cu",
                      ref + "rwkv6_wkv/kernel.py:62",
                      wkv_rows[WKV_MAIN], wkv_rows,
-                     {"serve_rwkv6": rwkv["wkv_scan"]}),
+                     {"train_ssm": ssm["wkv_scan"],
+                      "serve_rwkv6": rwkv["wkv_scan"]}),
     ]})
     emit({"phase": "done", "card": card,
           "seconds": time.perf_counter() - t_start})

@@ -9,13 +9,16 @@
 // accumulator stay in registers for the whole walk and the (Sq, Skv) score
 // matrix never reaches device memory.
 //
-// Two bodies, chosen by the input type in `flash_fwd` below:
+// Three bodies, chosen by the input type and head dim in `flash_fwd` below:
 //   * bf16 q/k/v: the tensor-core body of flash_fwd_sm90.cuh (wgmma on a
 //     TMA-fed ring in shared memory, P rounded to bf16 for P.V);
-//   * fp32 q/k/v: the FMA body in this file, all maths in fp32 FMAs (the
-//     fp32 parity tolerance of 2e-5 rules out TF32 products).
+//   * fp32 q/k/v, D <= 80: the tensor-core body of flash_fwd_tf32_sm90.cuh
+//     (3xTF32 wgmma after a split pre-pass; the fp32 parity tolerance of
+//     2e-5 rules out one TF32 product);
+//   * fp32 q/k/v, D = 128: the FMA body in this file, all maths in fp32
+//     FMAs (the 3xTF32 body's operands do not fit in shared memory there).
 //
-// Semantics kept from the reference body by both:
+// Semantics kept from the reference body by all three:
 //   * layout q (B,H,Sq,D), k/v (B,KH,Skv,D); kv head = h / (H/KH), by index;
 //   * s = (q.k) * scale, masked entries set to NEG = -1e30 (finite);
 //   * p = exp(s - m_new) is zeroed BY THE MASK, not by underflow: a row that
@@ -29,9 +32,8 @@
 // uses; positions outside Sq / Skv are masked, so neither has to be a
 // multiple of the tile.
 //
-// FMA body.  Bound: operations.  Causal attention at H=32, S=2048, D=64 is
-// 17 GFLOP against about 67 MB (fp32) of compulsory traffic; with true-fp32
-// products the yardstick is the fp32 FMA rate outside the tensor cores.
+// FMA body (fp32, D = 128).  Bound: operations; with true-fp32 products the
+// yardstick is the fp32 FMA rate outside the tensor cores.
 // Design: 256 threads as a 16x16 grid.  Scores: a 64x64 tile, 4x4 per
 // thread, from Q and K tiles held transposed in shared memory (float4 reads
 // along the row / column axis).  The 16 threads that share a row group are
@@ -45,6 +47,7 @@
 #include <math.h>
 
 #include "flash_fwd_sm90.cuh"
+#include "flash_fwd_tf32_sm90.cuh"
 
 namespace {
 
@@ -243,37 +246,56 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 }  // namespace
 
+// Floats of scratch that `flash_fwd` needs: the split operands of the fp32
+// tensor-core body, 0 for the other bodies.
+extern "C" long long flash_fwd_scratch(int B, int H, int KH, int Sq, int Skv,
+                                       int D, int is_bf16) {
+  return is_bf16 || D > 80 ? 0
+                           : fwd32::scratch_floats(B, H, KH, Sq, Skv, D);
+}
+
 // Launches on `stream`, does not synchronise, allocates nothing.
 // q/out (B,H,Sq,D), k/v (B,KH,Skv,D), lse (B,H,Sq) fp32; is_bf16 selects the
 // type of q, k, v and out: bf16 runs the tensor-core body (q, k and v
-// 16-byte aligned), fp32 the FMA body.  D must be 16, 32, 64, 80 or 128 and
-// KH must divide H.
-// Returns cudaGetLastError() (or the error of the tensor-map encoding or of
-// the shared-memory opt-in).
+// 16-byte aligned), fp32 the 3xTF32 body (D <= 80, `scratch` of
+// flash_fwd_scratch() floats, 16-byte aligned) or at D = 128 the FMA body.
+// D must be 16, 32, 64, 80 or 128 and KH must divide H.  Returns
+// cudaGetLastError() (or the error of the tensor-map encoding or of the
+// shared-memory opt-in).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
-                         void* out, void* lse, int B, int H, int KH, int Sq,
-                         int Skv, int D, int causal, int window, float scale,
-                         int is_bf16, void* stream) {
+                         void* out, void* lse, void* scratch, int B, int H,
+                         int KH, int Sq, int Skv, int D, int causal,
+                         int window, float scale, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || H <= 0 || KH <= 0 || H % KH || Sq <= 0 || Skv <= 0 ||
       H > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   float* l = static_cast<float*>(lse);
+  float* w = static_cast<float*>(scratch);
+  if (!is_bf16 && D <= 80 && w == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float *qf = static_cast<const float*>(q),
+              *kf = static_cast<const float*>(k),
+              *vf = static_cast<const float*>(v);
+  float* of = static_cast<float*>(out);
 #define FB_CASE(DD)                                                          \
   case DD:                                                                   \
     return is_bf16 ? fwd90::launch<DD>(q, k, v, out, l, B, H, KH, Sq, Skv,   \
                                        causal, window, scale, s)             \
-                   : launch<DD>(q, k, v, out, l, B, H, KH, Sq, Skv, causal,  \
-                                window, scale, s);
+                   : fwd32::launch<DD>(qf, kf, vf, of, l, w, B, H, KH, Sq,   \
+                                       Skv, causal, window, scale, s);
   switch (D) {
     FB_CASE(16)
     FB_CASE(32)
     FB_CASE(64)
     FB_CASE(80)
-    FB_CASE(128)
+    case 128:
+      return is_bf16 ? fwd90::launch<128>(q, k, v, out, l, B, H, KH, Sq, Skv,
+                                          causal, window, scale, s)
+                     : launch<128>(q, k, v, out, l, B, H, KH, Sq, Skv, causal,
+                                   window, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef FB_CASE
 }
-

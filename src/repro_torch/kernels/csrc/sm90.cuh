@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core bodies
-// (flash_fwd_sm90.cuh, flash_dkdv_sm90.cuh, flash_dq_sm90.cuh,
-// systolic_matmul_sm90.cuh): mbarriers, TMA tile loads, wgmma shared-memory
-// descriptors and the wgmma instructions themselves (bf16 and TF32), all
-// as inline PTX (no CUTLASS/CuTe headers, so a plain nvcc build takes
-// seconds), and the host-side encoding of TMA tensor maps.
+// (flash_fwd_sm90.cuh, flash_fwd_tf32_sm90.cuh, flash_dkdv_sm90.cuh,
+// flash_dq_sm90.cuh, systolic_matmul_sm90.cuh, ssd_scan.cu): mbarriers,
+// TMA tile loads, wgmma shared-memory descriptors and the wgmma
+// instructions themselves (bf16 and TF32), all as inline PTX (no
+// CUTLASS/CuTe headers, so a plain nvcc build takes seconds), and the
+// host-side encoding of TMA tensor maps.
 //
 // Attention tiles are bf16, row-major in device memory, and copied by TMA
 // into shared memory in "slabs" of at most 64 columns: a head dim D is cut
@@ -385,6 +386,166 @@ __device__ __forceinline__ void mma_tf32_n128(float* d, uint64_t da,
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (+)= A * B in TF32, m64nNk8, A (64 x 8) and B (N x 8) K-major in shared
+// memory (SS) or A as a register fragment (RS: four words a thread, a0 at
+// row l/4 and column l%4 of the thread's warp's 16 rows, a1 eight rows
+// down, a2 and a3 four columns right of a0 and a1); the widths the fp32
+// attention forward needs (flash_fwd_tf32_sm90.cuh).
+
+__device__ __forceinline__ void mma_tf32_ss_n32(float* d, uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void mma_tf32_ss_n64(float* d, uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void mma_tf32_rs_n16(float* d, const uint32_t* a,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+__device__ __forceinline__ void mma_tf32_rs_n32(float* d, const uint32_t* a,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+__device__ __forceinline__ void mma_tf32_rs_n64(float* d, const uint32_t* a,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+__device__ __forceinline__ void mma_tf32_rs_n80(float* d, const uint32_t* a,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+
+template <int N>
+__device__ __forceinline__ void mma_tf32_ss(float* d, uint64_t da, uint64_t db,
+                                            int accumulate) {
+  static_assert(N == 32 || N == 64, "m64n32k8 and m64n64k8");
+  if constexpr (N == 64)
+    mma_tf32_ss_n64(d, da, db, accumulate);
+  else
+    mma_tf32_ss_n32(d, da, db, accumulate);
+}
+
+template <int N>
+__device__ __forceinline__ void mma_tf32_rs(float* d, const uint32_t* a,
+                                            uint64_t db, int accumulate) {
+  static_assert(N == 16 || N == 32 || N == 64 || N == 80,
+                "m64nNk8 for N = 16, 32, 64, 80");
+  if constexpr (N == 80)
+    mma_tf32_rs_n80(d, a, db, accumulate);
+  else if constexpr (N == 64)
+    mma_tf32_rs_n64(d, a, db, accumulate);
+  else if constexpr (N == 32)
+    mma_tf32_rs_n32(d, a, db, accumulate);
+  else
+    mma_tf32_rs_n16(d, a, db, accumulate);
+}
+
+// x rounded to TF32 (10 mantissa bits), to nearest, ties away from zero
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(y) : "f"(x));
+  return __uint_as_float(y);
+}
+
+// hi[at] = tf32(x), lo[at] = tf32(x - hi): x = hi + lo to about 21 bits
+// (the split pre-passes of the 3xTF32 bodies)
+__device__ __forceinline__ void split_tf32(float x, float* hi, float* lo,
+                                           size_t at) {
+  const float h = tf32_rna(x);
+  hi[at] = h;
+  lo[at] = tf32_rna(x - h);
 }
 
 // --------------------------------------------------------- host side

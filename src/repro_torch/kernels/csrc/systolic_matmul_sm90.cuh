@@ -68,19 +68,6 @@ struct Maps {
   CUtensorMap a_hi, a_lo, b_hi, b_lo;
 };
 
-__device__ __forceinline__ float tf32(float x) {
-  uint32_t y;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(y) : "f"(x));
-  return __uint_as_float(y);
-}
-
-__device__ __forceinline__ void split(float x, float* hi, float* lo,
-                                      size_t at) {
-  const float h = tf32(x);
-  hi[at] = h;
-  lo[at] = tf32(x - h);
-}
-
 // A (M,K) -> hi, lo (M,Kp), zeros in columns [K, Kp); blocks stride over
 // the rows (y) and the columns (x)
 __global__ void split_rows(const float* __restrict__ A, float* __restrict__ hi,
@@ -88,7 +75,8 @@ __global__ void split_rows(const float* __restrict__ A, float* __restrict__ hi,
   for (int m = blockIdx.y; m < M; m += gridDim.y)
     for (int k = blockIdx.x * blockDim.x + threadIdx.x; k < Kp;
          k += gridDim.x * blockDim.x)
-      split(k < K ? A[(size_t)m * K + k] : 0.f, hi, lo, (size_t)m * Kp + k);
+      split_tf32(k < K ? A[(size_t)m * K + k] : 0.f, hi, lo,
+                 (size_t)m * Kp + k);
 }
 
 // B (K,N) -> B^T hi, lo (N,Kp), zeros in columns [K, Kp); 32x32 tiles
@@ -108,7 +96,8 @@ __global__ void split_cols_t(const float* __restrict__ B,
 #pragma unroll
   for (int j = 0; j < 32; j += 8) {
     const int n = n0 + ty + j, k = k0 + tx;
-    if (n < N && k < Kp) split(t[tx][ty + j], hi, lo, (size_t)n * Kp + k);
+    if (n < N && k < Kp)
+      split_tf32(t[tx][ty + j], hi, lo, (size_t)n * Kp + k);
   }
 }
 

@@ -3,7 +3,9 @@
 (``csrc/flash_bwd.cu``: dk/dv and dq), each with its plain PyTorch version.
 bf16 inputs run tensor-core bodies (``csrc/flash_fwd_sm90.cuh``,
 ``csrc/flash_dkdv_sm90.cuh``, ``csrc/flash_dq_sm90.cuh``: wgmma on TMA-fed
-tiles); fp32 inputs run fp32-FMA bodies.
+tiles); fp32 inputs run the forward's 3xTF32 tensor-core body
+(``csrc/flash_fwd_tf32_sm90.cuh``, head dims up to 80, its split operands
+in scratch the wrapper allocates) and fp32-FMA bodies otherwise.
 
 Layout: (B, H, S, D).  GQA is handled by index (kv head ``h // G``); no KV
 repeat is ever materialised.  Causal / sliding-window tiles that are fully
@@ -211,7 +213,7 @@ def flash_dq_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 _ARGTYPES = {
     # pointers ..., B, H, KH, Sq, Skv, D, causal, window, scale, is_bf16, stream
-    "flash_fwd": [ctypes.c_void_p] * 5,
+    "flash_fwd": [ctypes.c_void_p] * 6,
     "flash_dkdv": [ctypes.c_void_p] * 8,
     "flash_dq": [ctypes.c_void_p] * 7,
 }
@@ -226,6 +228,17 @@ def _fn(name: str):
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _fp32_fwd_scratch(B, H, KH, Sq, Skv, D, device):
+    """The fp32 tensor-core forward's split operands (written by its
+    pre-pass), or None where the fp32 body needs none (D = 128)."""
+    fn = _build.load("flash_fwd").flash_fwd_scratch
+    if not fn.argtypes:
+        fn.argtypes = [ctypes.c_int] * 7
+        fn.restype = ctypes.c_longlong
+    n = fn(B, H, KH, Sq, Skv, D, 0)
+    return torch.empty(n, dtype=torch.float32, device=device) if n else None
 
 
 def _check_kernel_operands(name: str, D: int, window: int, *ts: torch.Tensor
@@ -277,12 +290,15 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_fwd_plain(q, k, v, causal=causal, window=window, bq=bq,
                                bk=bk)
     _check_kernel_operands("flash_fwd", D, window, q, k, v)
+    bf16 = q.dtype == torch.bfloat16
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    scratch = None if bf16 else _fp32_fwd_scratch(B, H, KH, Sq, Skv, D,
+                                                  q.device)
     _launch("flash_fwd", (q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          out.data_ptr(), lse.data_ptr()),
-            B, H, KH, Sq, Skv, D, causal, window, q.dtype == torch.bfloat16,
-            q.device)
+                          out.data_ptr(), lse.data_ptr(),
+                          scratch.data_ptr() if scratch is not None else None),
+            B, H, KH, Sq, Skv, D, causal, window, bf16, q.device)
     launches += 1
     return out, lse
 

@@ -7,6 +7,7 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch._device import resolve_device, to_device
+from repro_torch.kernels._compiled import compiled_tier
 from repro_torch.kernels.flash_attention import kernel as K
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as R
@@ -22,14 +23,16 @@ def _inputs(batch: int, heads: int, seq: int, dim: int):
 
 
 def flash_backends(bq: int = 32, bk: int = 32, causal: bool = True,
-                   device="cuda") -> dict:
+                   device="cuda", jit: bool = True) -> dict:
     """oracle/interpret/compiled backend table for register_op.
 
     Each backend takes and returns host numpy arrays and owns the copy to
     ``device`` and back.  oracle = torch reference; interpret = the
     hand-written kernel (its plain version when ``device`` is the CPU);
-    compiled = the oracle callable — PyTorch runs eagerly, so there is no
-    separately compiled executable yet.
+    compiled = with ``jit`` on a CUDA device, the oracle's maths through
+    ``torch.compile`` (the twin of the reference's jitted reference, the
+    deployment tier), one compiled callable per table, built at its first
+    call; else the oracle callable itself, as the reference's ``jit=False``.
     """
     dev = resolve_device(device)
 
@@ -45,7 +48,10 @@ def flash_backends(bq: int = 32, bk: int = 32, causal: bool = True,
                              window=0, bq=bq, bk=bk)
         return out.cpu().numpy()
 
-    return dict(oracle=oracle, interpret=interpret, compiled=oracle)
+    compiled = oracle
+    if jit and dev.type == "cuda":
+        compiled = compiled_tier(R.attention_ref, on_dev, causal=causal)
+    return dict(oracle=oracle, interpret=interpret, compiled=compiled)
 
 
 def flash_firmware(fb, op, backend, *, batch=1, heads=8, seq=64, dim=16,

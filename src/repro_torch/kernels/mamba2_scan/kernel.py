@@ -1,5 +1,6 @@
 """The Mamba-2 SSD chunked scan — a hand-written CUDA kernel
-(``csrc/ssd_scan.cu``) and its plain PyTorch version.
+(``csrc/ssd_scan.cu``: three launches, the chunks in parallel, products on
+the tensor cores) and its plain PyTorch version.
 
 Layout: x (B, L, H, P) and B_/C_ (B, L, N) of one type (fp32 or bf16),
 dt (B, L, H), A/D (H,) fp32; results y (B, L, H, P) fp32 — the ``D`` skip
@@ -9,8 +10,8 @@ included — and the final state (B, H, P, N) fp32, from a zero state.
 the chunk length of the chunked arithmetic on both routes; ``hb`` keeps
 the reference's head-block contract, which defines the modeled burst list
 (``ops.transactions``) and nothing numeric.  The kernel has no backward
-(neither has the reference's): CUDA inputs that require a gradient are
-refused.
+(neither has the reference's): called directly, it refuses CUDA inputs
+that require a gradient; ``ops.ssd_scan`` differentiates it by recompute.
 """
 from __future__ import annotations
 
@@ -23,6 +24,8 @@ from repro_torch._device import on_cpu, true_fp32
 from repro_torch.kernels import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
+# the kernel's register fragments are sized for these (csrc/ssd_scan.cu)
+CHUNK_MAX, P_MAX, N_MAX = 128, 64, 64
 SMEM_MAX = 232448        # bytes of shared memory a block may opt into
 
 # number of CUDA kernel launches made by ``ssd_scan`` (a plain integer; a
@@ -47,12 +50,18 @@ def _shapes(x, dt, B_, C_, A, D, chunk: int, hb: int):
     return Bsz, L, H, P, N, cl, hb
 
 
-def smem_bytes(cl: int, P: int, N: int) -> int:
-    """Shared memory of one block of the kernel (``layout`` in the
-    source): B and C transposed, x, the (cl, cl) M tile, the transposed
-    state, and three vectors of cl floats; rows padded by 4 floats."""
-    return 4 * (2 * N * (cl + 4) + cl * (P + 4) + cl * (cl + 4)
-                + N * (P + 4) + 3 * cl)
+def smem_bytes(split: bool) -> int:
+    """Shared memory of one block of the kernel's output launch
+    (``chunk_out`` in the source): C and B row-major (chunk x N), x
+    transposed (P x chunk), the incoming state as a bf16 hi + lo pair, each
+    bf16 at the kernel's largest chunk, P and N with rows padded by 8, and
+    two vectors of chunk floats for each head of the block; ``split`` (fp32
+    x/B/C, four heads a block where bf16 operands take one) doubles the
+    first three for their lo halves."""
+    ldn, ldj = N_MAX + 8, CHUNK_MAX + 8
+    tiles = 2 * CHUNK_MAX * ldn + P_MAX * ldj
+    return ((2 if split else 1) * tiles + 2 * P_MAX * ldn) * 2 \
+        + 2 * (4 if split else 1) * CHUNK_MAX * 4
 
 
 @true_fp32()
@@ -93,13 +102,15 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
     return y, state
 
 
-def _fn():
-    fn = _build.load("ssd_scan").ssd_scan
-    if not fn.argtypes:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+def _lib():
+    lib = _build.load("ssd_scan")
+    if not lib.ssd_scan.argtypes:
+        lib.ssd_scan.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 \
+            + [ctypes.c_void_p]
+        lib.ssd_scan.restype = ctypes.c_int
+        lib.ssd_scan_scratch.argtypes = [ctypes.c_int] * 6
+        lib.ssd_scan_scratch.restype = ctypes.c_longlong
+    return lib
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
@@ -115,28 +126,35 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
     if on_cpu("ssd_scan", *ts):
         return ssd_scan_plain(x, dt, B_, C_, A, D, chunk=chunk, hb=hb)
     if any(t.requires_grad for t in ts) and torch.is_grad_enabled():
-        raise RuntimeError("ssd_scan has no backward kernel (nor has the "
-                           "reference's): inputs must not require a gradient")
+        raise RuntimeError("the raw ssd_scan kernel has no backward: call "
+                           "ops.ssd_scan, which differentiates by recompute")
     if x.dtype not in _DTYPES or B_.dtype != x.dtype or C_.dtype != x.dtype \
             or any(t.dtype != torch.float32 for t in (dt, A, D)):
         raise TypeError(f"ssd_scan kernel takes x/B_/C_ of one type (float32 "
                         f"or bfloat16) and float32 dt/A/D, got "
                         f"{[t.dtype for t in ts]}")
-    if cl % 4 or P % 4 or N % 4 or smem_bytes(cl, P, N) > SMEM_MAX:
-        raise ValueError(f"kernel takes chunk, P and N in multiples of 4 "
-                         f"within {SMEM_MAX} bytes of shared memory, got "
-                         f"chunk={cl}, P={P}, N={N} "
-                         f"({smem_bytes(cl, P, N)} bytes)")
+    if cl % 4 or P % 4 or N % 4 or cl > CHUNK_MAX or P > P_MAX \
+            or N > N_MAX:
+        raise ValueError(f"kernel takes chunk, P and N in multiples of 4 up "
+                         f"to {CHUNK_MAX}, {P_MAX} and {N_MAX}, got "
+                         f"chunk={cl}, P={P}, N={N}")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("kernel takes contiguous tensors")
+    if any(t.data_ptr() % 16 for t in (x, B_, C_)):
+        raise ValueError("kernel takes x, B_ and C_ whose data starts on a "
+                         "16-byte boundary (vector loads)")
+    lib = _lib()
     with torch.cuda.device(x.device):
         y = torch.empty((Bsz, L, H, P), dtype=torch.float32, device=x.device)
         st = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
-        err = _fn()(x.data_ptr(), dt.data_ptr(), B_.data_ptr(),
-                    C_.data_ptr(), A.data_ptr(), D.data_ptr(), y.data_ptr(),
-                    st.data_ptr(), Bsz, L, H, P, N, cl,
-                    int(x.dtype == torch.bfloat16),
-                    torch.cuda.current_stream().cuda_stream)
+        # the chunks' own states and cum_last, from the caching allocator
+        scratch = torch.empty(lib.ssd_scan_scratch(Bsz, L, H, P, N, cl),
+                              dtype=torch.float32, device=x.device)
+        err = lib.ssd_scan(x.data_ptr(), dt.data_ptr(), B_.data_ptr(),
+                           C_.data_ptr(), A.data_ptr(), D.data_ptr(),
+                           y.data_ptr(), st.data_ptr(), scratch.data_ptr(),
+                           Bsz, L, H, P, N, cl, int(x.dtype == torch.bfloat16),
+                           torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan launch refused: CUDA error {err}")
     launches += 1

@@ -1,18 +1,66 @@
-"""Public wrapper for the SSD scan kernel, plus the static per-tile DMA
-burst list implied by its modeled tile grid (the §IV "schedule is the
-burst list" contract; consumed by the FireBridge memory bridge and the
-online congestion link, Fig. 8)."""
+"""Public wrapper for the SSD scan kernel, differentiable by recompute,
+plus the static per-tile DMA burst list implied by its modeled tile grid
+(the §IV "schedule is the burst list" contract; consumed by the FireBridge
+memory bridge and the online congestion link, Fig. 8)."""
 from __future__ import annotations
 
 from typing import List, Tuple
 
+import torch
+
+from repro_torch.kernels._recompute import recompute_grads
 from repro_torch.kernels.mamba2_scan import kernel as K
+
+
+def ssd_scan_twin(x, dt, B_, C_, A, D, *, chunk=128):
+    """The reference's training arithmetic for the same function: its lax
+    scan of ``models/mamba2.py::_ssd_chunk`` over chunks of ``chunk`` steps
+    from a zero state, then the ``D x`` skip that its ``mamba2_forward``
+    adds, in plain (differentiable) tensor ops.  Returns ``(y, final
+    state)`` as ``ssd_scan`` does."""
+    from repro_torch.models.mamba2 import _ssd_chunk    # models import ops
+    Bsz, L, H, P = x.shape
+    cl = min(chunk, L)
+    state = torch.zeros((Bsz, H, P, B_.shape[-1]), dtype=torch.float32,
+                        device=x.device)
+    ys = []
+    for c in range(L // cl):
+        rows = slice(c * cl, (c + 1) * cl)
+        state, yc = _ssd_chunk(state, x[:, rows], dt[:, rows], A,
+                               B_[:, rows], C_[:, rows])
+        ys.append(yc)
+    y = torch.cat(ys, dim=1) + D.float()[None, None, :, None] * x.float()
+    return y, state
+
+
+class _SSD(torch.autograd.Function):
+    """Forward: the kernel (CUDA tensors) or its plain version (CPU
+    tensors).  Backward, on both devices: the forward again through
+    ``ssd_scan_twin`` on detached inputs under autograd, then
+    ``torch.autograd.grad`` with the incoming gradients
+    (``kernels/_recompute.py``) — the reference differentiates exactly that
+    scan."""
+
+    @staticmethod
+    def forward(ctx, x, dt, B_, C_, A, D, chunk, hb):
+        ctx.save_for_backward(x, dt, B_, C_, A, D)
+        ctx.twin_kw = dict(chunk=chunk)
+        return K.ssd_scan(x, dt, B_, C_, A, D, chunk=chunk, hb=hb)
+
+    @staticmethod
+    def backward(ctx, gy, gstate):
+        return (*recompute_grads(ctx, ssd_scan_twin, gy, gstate), None,
+                None)
 
 
 def ssd_scan(x, dt, B_, C_, A, D, *, chunk=128, hb=8):
     """x (B,L,H,P); dt (B,L,H); B_/C_ (B,L,N); A/D (H,) -> (y, final
     state); the kernel for CUDA tensors, its plain version for CPU
-    tensors."""
+    tensors; differentiable (backward by recompute through
+    ``ssd_scan_twin``)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, B_, C_, A, D)):
+        return _SSD.apply(x, dt, B_, C_, A, D, chunk, hb)
     return K.ssd_scan(x, dt, B_, C_, A, D, chunk=chunk, hb=hb)
 
 

@@ -9,7 +9,8 @@ that lie on the CPU.  ``chunk``/``hb`` keep the reference's clamping and
 divisibility contract, since they define the modeled burst list
 (``ops.transactions``); the kernel walks all L steps in one loop, which
 changes nothing but fp32 rounding.  The kernel has no backward (neither
-has the reference's): CUDA inputs that require a gradient are refused.
+has the reference's): called directly, it refuses CUDA inputs that require
+a gradient; ``ops.wkv_scan`` differentiates it by recompute.
 """
 from __future__ import annotations
 
@@ -83,8 +84,8 @@ def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if on_cpu("wkv_scan", *ts):
         return wkv_scan_plain(r, k, v, w, u, chunk=chunk, hb=hb)
     if any(t.requires_grad for t in ts) and torch.is_grad_enabled():
-        raise RuntimeError("wkv_scan has no backward kernel (nor has the "
-                           "reference's): inputs must not require a gradient")
+        raise RuntimeError("the raw wkv_scan kernel has no backward: call "
+                           "ops.wkv_scan, which differentiates by recompute")
     if any(t.dtype != torch.float32 for t in ts):
         raise TypeError(f"wkv_scan kernel takes float32 r/k/v/w/u, got "
                         f"{[t.dtype for t in ts]}")

@@ -1,17 +1,63 @@
-"""Public wrapper for the WKV-6 kernel, plus the static per-tile DMA burst
-list implied by its modeled tile grid (the §IV "schedule is the burst list"
-contract; consumed by the FireBridge memory bridge and the online
-congestion link, Fig. 8)."""
+"""Public wrapper for the WKV-6 kernel, differentiable by recompute, plus
+the static per-tile DMA burst list implied by its modeled tile grid (the
+§IV "schedule is the burst list" contract; consumed by the FireBridge
+memory bridge and the online congestion link, Fig. 8)."""
 from __future__ import annotations
 
 from typing import List, Tuple
 
+import torch
+
+from repro_torch.kernels._recompute import recompute_grads
 from repro_torch.kernels.rwkv6_wkv import kernel as K
+
+
+def wkv_scan_twin(r, k, v, w, u, *, chunk=16):
+    """The reference's training arithmetic for the same function: its lax
+    scan of ``models/rwkv6.py::_wkv_chunk`` over chunks of ``chunk`` steps
+    from a zero state, in plain (differentiable) tensor ops.  Returns
+    ``(y, final state)`` as ``wkv_scan`` does."""
+    from repro_torch.models.rwkv6 import _wkv_chunk    # models import ops
+    B, L, H, Kd = r.shape
+    cl = min(chunk, L)
+    state = torch.zeros((B, H, Kd, v.shape[-1]), dtype=torch.float32,
+                        device=r.device)
+    ys = []
+    for c in range(L // cl):
+        rows = slice(c * cl, (c + 1) * cl)
+        state, yc = _wkv_chunk(state, r[:, rows], k[:, rows], v[:, rows],
+                               w[:, rows], u)
+        ys.append(yc)
+    return torch.cat(ys, dim=1), state
+
+
+class _WKV(torch.autograd.Function):
+    """Forward: the kernel (CUDA tensors) or its plain version (CPU
+    tensors).  Backward, on both devices: the forward again through
+    ``wkv_scan_twin`` on detached inputs under autograd, then
+    ``torch.autograd.grad`` with the incoming gradients
+    (``kernels/_recompute.py``) — the reference differentiates exactly that
+    scan."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, chunk, hb):
+        ctx.save_for_backward(r, k, v, w, u)
+        ctx.twin_kw = dict(chunk=chunk)
+        return K.wkv_scan(r, k, v, w, u, chunk=chunk, hb=hb)
+
+    @staticmethod
+    def backward(ctx, gy, gstate):
+        return (*recompute_grads(ctx, wkv_scan_twin, gy, gstate), None,
+                None)
 
 
 def wkv_scan(r, k, v, w, u, *, chunk=16, hb=8):
     """r/k/v/w (B,L,H,K); u (H,K) -> (y, final state); the kernel for CUDA
-    tensors, its plain version for CPU tensors."""
+    tensors, its plain version for CPU tensors; differentiable (backward by
+    recompute through ``wkv_scan_twin``)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, w, u)):
+        return _WKV.apply(r, k, v, w, u, chunk, hb)
     return K.wkv_scan(r, k, v, w, u, chunk=chunk, hb=hb)
 
 

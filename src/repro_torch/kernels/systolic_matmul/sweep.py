@@ -8,6 +8,7 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch._device import resolve_device, to_device
+from repro_torch.kernels._compiled import compiled_tier
 from repro_torch.kernels.systolic_matmul import ops as mm_ops, ref as mm_ref
 
 
@@ -28,14 +29,16 @@ def matmul_firmware(fb, op, backend, *, size, tile: int = 32):
                   dtype_bytes=4))
 
 
-def matmul_backends(tile: int = 32, device="cuda") -> dict:
+def matmul_backends(tile: int = 32, device="cuda", jit: bool = True) -> dict:
     """oracle/interpret/compiled backend table for register_op.
 
     Each backend takes and returns host numpy arrays (the bridge's DDR)
     and owns the copy to ``device`` and back.  oracle = fp32 torch
     reference; interpret = the hand-written kernel (its plain version when
-    ``device`` is the CPU); compiled = the oracle callable — PyTorch runs
-    eagerly, so there is no separately compiled executable yet.
+    ``device`` is the CPU); compiled = with ``jit`` on a CUDA device, the
+    oracle's maths through ``torch.compile`` (the twin of the reference's
+    ``jax.jit``), one compiled callable per table, built at its first call;
+    else the oracle callable itself, as the reference's ``jit=False``.
     """
     dev = resolve_device(device)
 
@@ -49,4 +52,7 @@ def matmul_backends(tile: int = 32, device="cuda") -> dict:
         return mm_ops.matmul(on_dev(x), on_dev(y), bm=tile, bn=tile,
                              bk=tile).cpu().numpy()
 
-    return dict(oracle=oracle, interpret=interpret, compiled=oracle)
+    compiled = oracle
+    if jit and dev.type == "cuda":
+        compiled = compiled_tier(mm_ref.matmul_ref, on_dev)
+    return dict(oracle=oracle, interpret=interpret, compiled=compiled)

@@ -3,13 +3,15 @@ the port of ``repro.models.mamba2``.
 
 Chunked SSD is numerically safe everywhere: every exponent is a difference
 cum_i - cum_j with i >= j of a cumulative sum of dA = dt * A <= 0, so all
-exp() arguments are <= 0.  ``mamba2_forward`` — the whole-sequence
-forward and prefill, from a zero state — runs the SSD scan kernel over the
-sequence (``kernels/mamba2_scan``: the hand-written CUDA kernel for CUDA
-tensors, its plain version for CPU tensors), which adds the ``D`` skip
-itself.  ``_ssd_chunk`` is the reference's lax twin of one chunk of that
-scan, kept as the model-side statement of the kernel's arithmetic (the
-tests hold the two together).  Decode stays ``mamba2_decode``.
+exp() arguments are <= 0.  ``mamba2_forward`` — the whole-sequence forward (training) and prefill,
+from a zero state — runs the SSD scan kernel over the sequence
+(``kernels/mamba2_scan``: the hand-written CUDA kernel for CUDA tensors,
+its plain version for CPU tensors), which adds the ``D`` skip itself.
+``_ssd_chunk`` is the twin of the reference's lax scan body: under autograd
+the kernel wrapper's backward runs the forward again through it (and the
+``D`` skip) and differentiates that, the reference's training arithmetic,
+since its forward never calls its Pallas kernel.  Decode stays
+``mamba2_decode``.
 
 Projections use separate matrices per component (z, x, B, C, dt) as in
 the reference.  Where the reference mixes a bf16 operand into a float32

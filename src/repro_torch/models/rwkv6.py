@@ -3,12 +3,15 @@ the port of ``repro.models.rwkv6``.
 
 Decays are per channel (the K axis), so the recurrence is kept in its exact
 per-step form.  Where ``time_mix`` starts from no state — the whole-sequence
-forward and prefill — it runs the WKV-6 kernel over the sequence
+forward (training) and prefill — it runs the WKV-6 kernel over the sequence
 (``kernels/rwkv6_wkv``: the hand-written CUDA kernel for CUDA tensors, its
 plain version for CPU tensors), which starts from a zero state as the
-reference's scan does from ``zeros``.  With a carried state (decode) it
-runs ``_wkv_chunk``, the reference's lax twin, chunk by chunk: no kernel
-launches there, as in the reference.
+reference's scan does from ``zeros``.  Under autograd the wrapper's
+backward runs the forward again through ``_wkv_chunk``, the twin of the
+reference's lax scan, and differentiates that: the reference's training
+arithmetic, since its forward never calls its Pallas kernel.  With a
+carried state (decode) ``time_mix`` runs ``_wkv_chunk`` chunk by chunk: no
+kernel launches there, as in the reference.
 
 Where the reference mixes a bf16 operand into a float32 product, JAX
 promotes the bf16 operand; PyTorch does not, so the port casts it up

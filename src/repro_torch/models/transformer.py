@@ -1,6 +1,5 @@
-"""Model assembly — the port of ``repro.models.transformer`` for the dense
-family (training, prefill, decode) and the ssm (rwkv6) and hybrid (zamba2)
-families (forward, prefill, decode).
+"""Model assembly — the port of ``repro.models.transformer`` for the dense,
+ssm (rwkv6) and hybrid (zamba2) families: training, prefill and decode.
 
 Layer weights stay stacked on leading axes exactly as the reference's
 ``init_params`` makes them (``L`` for dense and ssm, ``(n_super, per)`` for
@@ -14,12 +13,13 @@ runs again in the backward, so under ``attn_impl="pallas"`` one step
 launches the attention forward kernel 2·L times and each backward kernel
 L times.
 
-Three entry points, as in the reference: ``make_loss_fn`` (dense only:
-the ssm and hybrid scan kernels have no backward, in the reference either),
+Three entry points, as in the reference: ``make_loss_fn``,
 ``make_prefill_fn`` -> (last logits, cache) and ``make_decode_fn`` (one
-token with the cache).  The prefill of an ssm / hybrid model starts every
-scan from no state, which routes it through the WKV-6 / SSD scan kernels
-(``models/rwkv6.py``, ``models/mamba2.py``).  Prefill and decode run
+token with the cache).  The training forward and the prefill of an ssm /
+hybrid model start every scan from no state, which routes them through
+the WKV-6 / SSD scan kernels (``models/rwkv6.py``, ``models/mamba2.py``);
+their wrappers differentiate by recompute through the reference's own
+lax-scan arithmetic (``kernels/_recompute.py``).  Prefill and decode run
 without autograd.  Decode returns a new cache and never writes into the
 one it was given (it copies each cache leaf it updates once per call), so
 a caller may keep the old one, as with the reference's immutable arrays.
@@ -61,7 +61,7 @@ class RunFlags:
 _FAMILIES = ("dense", "ssm", "hybrid")
 
 
-def _check(cfg: ModelConfig, ctx: Any = None, *, train: bool = False) -> None:
+def _check(cfg: ModelConfig, ctx: Any = None) -> None:
     if ctx is not None:
         raise NotImplementedError(
             "the port runs on one device: ctx (a sharding context) must be "
@@ -72,11 +72,6 @@ def _check(cfg: ModelConfig, ctx: Any = None, *, train: bool = False) -> None:
             f"the port runs the dense, ssm and hybrid families; family "
             f"{cfg.family!r} (arch {cfg.arch}) waits for ROADMAP queue A "
             f"item 9")
-    if train and cfg.family != "dense":
-        raise NotImplementedError(
-            f"training of family {cfg.family!r} (arch {cfg.arch}) is not "
-            f"ported: its scan kernel has no backward, in the reference "
-            f"either (ROADMAP queue A item 9)")
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -345,7 +340,7 @@ def forward(cfg: ModelConfig, params, batch: dict, flags: RunFlags,
 
 
 def make_loss_fn(cfg: ModelConfig, flags: RunFlags, ctx: Any = None):
-    _check(cfg, ctx, train=True)
+    _check(cfg, ctx)
 
     def loss_fn(params, batch):
         params = cast_params(params, getattr(torch, flags.compute_dtype))

@@ -24,8 +24,10 @@ from repro_torch.configs import get_config, smoke
 from repro_torch.kernels.flash_attention import kernel as K
 from repro_torch.kernels.flash_attention import ref as R
 from repro_torch.kernels.mamba2_scan import kernel as SSD
+from repro_torch.kernels.mamba2_scan import ops as SSDops
 from repro_torch.kernels.mamba2_scan import ref as SSDref
 from repro_torch.kernels.rwkv6_wkv import kernel as WKV
+from repro_torch.kernels.rwkv6_wkv import ops as WKVops
 from repro_torch.kernels.rwkv6_wkv import ref as WKVref
 from repro_torch.kernels.systolic_matmul import kernel as MM
 from repro_torch.kernels.systolic_matmul import ref as MMref
@@ -356,3 +358,100 @@ def test_scan_wrappers_refuse_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError):
         SSD.ssd_scan(x, dt, bc, bc, a, a, chunk=2)            # chunk % 4
     assert (WKV.launches, SSD.launches) == before
+
+
+@pytest.mark.parametrize("B,H,KH,S,D,causal,window", [
+    (1, 4, 2, 200, 64, True, 0),        # ragged for the 128-row q tile
+    (1, 4, 4, 100, 80, False, 0),       # zamba2's head dim, 32-row kv tiles
+    (2, 8, 2, 160, 32, True, 24),       # GQA with a window
+    (1, 2, 2, 64, 16, True, 0),         # one 16-float slab
+    (1, 2, 1, 96, 128, True, 8),        # D = 128: the FMA body
+])
+def test_flash_fwd_fp32_tensor_core_body_on_card(card, B, H, KH, S, D, causal,
+                                                 window):
+    """The 3xTF32 body (D <= 80) within HALF the fp32 gate of the plain
+    version and the oracle (the rule that keeps the split), lse within its
+    gate; an operand 4 bytes past a 16-byte boundary runs too (the
+    pre-pass reads it, TMA reads the split copies)."""
+    rng = np.random.default_rng(12)
+    mk = lambda h: torch.from_numpy(
+        rng.normal(size=(B, h, S, D)).astype(np.float32)).to(card)
+    q, k, v = mk(H), mk(KH), mk(KH)
+    q_off = torch.empty(q.numel() + 1, device=card)[1:].view(q.shape)
+    q_off.copy_(q)
+    ref = R.attention_ref(q, k, v, causal=causal, window=window)
+    p_out, p_lse = K.flash_fwd_plain(q, k, v, causal=causal, window=window,
+                                     bq=S, bk=S)
+    gate = 2e-5 * (0.5 if D <= 80 else 1.0)
+    for qq in (q, q_off):
+        before = K.launches
+        out, lse = K.flash_fwd(qq, k, v, causal=causal, window=window, bq=S,
+                               bk=S)
+        torch.cuda.synchronize()
+        assert K.launches == before + 1
+        assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+        assert float((out - ref).abs().max()) < gate
+        assert float((out - p_out).abs().max()) < gate
+        assert float((lse - p_lse).abs().max()) < 1e-4 * max(
+            1.0, float(p_lse.abs().max()))
+
+
+@pytest.mark.parametrize("B,L,H,P,N,chunk,dt", [
+    (1, 300, 6, 12, 20, 100, torch.float32),    # chunk no multiple of 16
+    (2, 64, 5, 64, 8, 16, torch.bfloat16),      # H no multiple of 4, N < 16
+    (1, 384, 6, 64, 64, 128, torch.bfloat16),   # zamba2's head, 3 chunks
+    (1, 256, 4, 64, 64, 128, torch.float32),
+])
+def test_ssd_chunked_body_within_half_gate_on_card(card, B, L, H, P, N, chunk,
+                                                   dt):
+    """The three-launch body within HALF the gate (its fp32 operands are
+    bf16 hi + lo pairs), one wrapper launch a call."""
+    rng = np.random.default_rng(13)
+    g = lambda *sh: torch.from_numpy(
+        rng.normal(size=sh).astype(np.float32)).to(card)
+    x, Bm, Cm = g(B, L, H, P).to(dt), g(B, L, N).to(dt), g(B, L, N).to(dt)
+    dtt = torch.nn.functional.softplus(g(B, L, H))
+    A, D = -torch.exp(g(H) * 0.5), g(H)
+    before = SSD.launches
+    y, st = SSD.ssd_scan(x, dtt, Bm, Cm, A, D, chunk=chunk, hb=1)
+    torch.cuda.synchronize()
+    assert SSD.launches == before + 1
+    py, pst = SSD.ssd_scan_plain(x, dtt, Bm, Cm, A, D, chunk=chunk, hb=1)
+    tol = _scan_tol(py, pst)
+    for got, plain in ((y, py), (st, pst)):
+        assert torch.isfinite(got).all()
+        assert float((got - plain).abs().max()) < 0.5 * tol
+    with pytest.raises(ValueError):
+        SSD.ssd_scan(g(B, L, H, 68), dtt, Bm.float(), Cm.float(), A, D,
+                     chunk=chunk)                            # P > 64
+
+
+@pytest.mark.parametrize("scan", ["wkv", "ssd"])
+def test_scan_wrappers_differentiate_on_card(card, scan):
+    """Under autograd the wrappers launch the kernel on the forward and
+    differentiate by recompute through the twin of the reference's lax
+    scan: gradients equal autograd through that twin on the card."""
+    rng = np.random.default_rng(14)
+    g = lambda *sh: torch.from_numpy(
+        rng.normal(size=sh).astype(np.float32)).to(card)
+    if scan == "wkv":
+        args = [g(1, 64, 4, 16), g(1, 64, 4, 16), g(1, 64, 4, 16),
+                torch.exp(-torch.exp(g(1, 64, 4, 16))), g(4, 16) * 0.5]
+        op, twin, mod, kw = WKVops.wkv_scan, WKVops.wkv_scan_twin, WKV, {}
+    else:
+        args = [g(1, 128, 4, 16), torch.nn.functional.softplus(g(1, 128, 4)),
+                g(1, 128, 8), g(1, 128, 8), -torch.exp(g(4) * 0.5), g(4)]
+        op, twin, mod, kw = SSDops.ssd_scan, SSDops.ssd_scan_twin, SSD, dict(
+            chunk=32)
+    grads = []
+    for fn in (op, twin):
+        ins = [a.clone().requires_grad_() for a in args]
+        before = mod.launches
+        y, st = fn(*ins, **kw)
+        assert mod.launches == before + (fn is op)
+        gy = torch.ones_like(y)
+        grads.append(torch.autograd.grad((y * gy).sum() + st.sum(), ins))
+    for a, b in zip(*grads):
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= 1e-4 * max(
+            1.0, float(b.abs().max()))

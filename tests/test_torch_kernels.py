@@ -413,8 +413,9 @@ def test_build_target_follows_included_headers(tmp_path, monkeypatch):
     """A kernel library's name hashes its source and every ``csrc/`` header
     it includes, directly or through another header: editing ``sm90.cuh``
     (included by the attention and matmul sources through their
-    ``*_sm90.cuh``) renames those three libraries and no other; a file that
-    no source includes renames nothing.  Nothing is compiled."""
+    ``*_sm90.cuh``, and by the SSD scan directly) renames those four
+    libraries and no other; a file that no source includes renames
+    nothing.  Nothing is compiled."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
@@ -430,7 +431,8 @@ def test_build_target_follows_included_headers(tmp_path, monkeypatch):
     hdr.write_text(hdr.read_text() + "\n// an edit\n")
     after = targets()
     changed = {n for n in before if before[n] != after[n]}
-    assert changed == {"flash_fwd", "flash_bwd", "systolic_matmul"}
+    assert changed == {"flash_fwd", "flash_bwd", "systolic_matmul",
+                       "ssd_scan"}
     (csrc / "notes.txt").write_text("not a source")
     (csrc / "unused.cuh").write_text("// included by nothing\n")
     assert targets() == after

@@ -220,10 +220,15 @@ def test_wkv_transactions_equal(args, kw):
 
 
 def test_ssd_shared_memory_at_served_width():
-    """One block per (batch, head) at zamba2-2.7b's width (chunk 128,
-    P = N = 64) fits the 227 KB a block may opt into on sm_90."""
-    assert S.smem_bytes(128, 64, 64) == 188928 <= S.SMEM_MAX
-    assert S.smem_bytes(256, 64, 64) > S.SMEM_MAX
+    """The kernel's operand tiles are sized for its largest chunk, P and N,
+    which are zamba2-2.7b's served width (chunk 128, P = N = 64): a block
+    of its output launch holds 73,728 bytes for bf16 operands (three
+    blocks on one SM's 228 KB) and 131,072 for fp32 ones (their lo halves
+    too, four heads a block), within the 227 KB a block may opt into on
+    sm_90."""
+    assert (S.CHUNK_MAX, S.P_MAX, S.N_MAX) == (128, 64, 64)
+    assert S.smem_bytes(False) == 73728 and 3 * S.smem_bytes(False) <= 233472
+    assert S.smem_bytes(True) == 131072 <= S.SMEM_MAX
 
 
 def test_scan_wrappers_contract():

@@ -1,14 +1,20 @@
 """The arithmetic of the port's split-precision tensor-core bodies against
 the JAX reference, on the CPU.
 
-Two CUDA bodies trade one product in a wide type for several in a narrow
+Four CUDA bodies trade one product in a wide type for several in a narrow
 one (the kernels themselves run only on the card, where chip_smoke.py and
 tests/test_torch_gpu.py hold them against their plain versions):
 
 * the fp32 matmul (csrc/systolic_matmul_sm90.cuh) splits each operand into
   TF32 words x = hi + lo and sums three TF32 products (3xTF32);
 * the bf16 attention dq (csrc/flash_dq_sm90.cuh) carries dS as a bf16 pair
-  hi + lo and multiplies K twice.
+  hi + lo and multiplies K twice;
+* the fp32 attention forward (csrc/flash_fwd_tf32_sm90.cuh) runs S = Q K^T
+  and each kv tile's P V as 3xTF32, the tile's P V added to the running
+  output in fp32 (the promotion);
+* the SSD scan (csrc/ssd_scan.cu) multiplies on bf16 tensor cores, its
+  fp32 operands (M, the weighted x, the incoming state; x, B and C too
+  when they are fp32) as bf16 pairs hi + lo.
 
 Here the same arithmetic, written with numpy/torch on the CPU (TF32 and
 bf16 rounding by bit manipulation, exact products, fp32 sums), is held
@@ -24,6 +30,7 @@ import pytest
 import torch
 
 from repro.kernels.flash_attention import kernel as refK
+from repro.kernels.mamba2_scan import kernel as refSSD
 from repro.kernels.systolic_matmul import kernel as refMM
 
 torch.set_num_threads(1)
@@ -164,3 +171,181 @@ def test_dq_with_split_ds_within_half_gate_of_reference(B, H, KH, S, D,
     tol = 5e-4 * max(1.0, float(np.abs(want).max()))
     assert np.isfinite(got).all() and got.shape == want.shape
     assert float(np.abs(got - want).max()) < HALF * tol
+
+
+def _split_tf32(x):
+    hi = _tf32_np(x)
+    return hi, _tf32_np(x - hi)
+
+
+def _mm3(a, b):
+    """a @ b over the last two axes as the 3xTF32 bodies run it: lo.hi +
+    hi.lo + hi.hi, each product of TF32 words exact in fp32, fp32 sums."""
+    ah, al = _split_tf32(a)
+    bh, bl = _split_tf32(b)
+    return (al @ bh + ah @ bl + ah @ bh).astype(np.float32)
+
+
+def _flash_fwd_3xtf32_model(q, k, v, causal, window, bkv):
+    """The fp32 tensor-core forward: S by 3xTF32, the online softmax over
+    kv tiles of ``bkv`` (64, or 32 at D = 80), each tile's P V by 3xTF32
+    into a fresh sum added to the rescaled output in fp32; l clamped at
+    1e-30, lse = m + log l.  Arrays (B, H, S, D) / (B, KH, S, D)."""
+    B, H, S, D = q.shape
+    G = H // k.shape[1]
+    kr = np.repeat(k, G, axis=1)
+    vr = np.repeat(v, G, axis=1)
+    scale = np.float32(1.0 / np.sqrt(D))
+    s = _mm3(q, np.swapaxes(kr, -1, -2)) * scale
+    pos = np.arange(S)
+    mask = np.ones((S, S), bool)
+    if causal:
+        mask &= pos[None, :] <= pos[:, None]
+    if window:
+        mask &= pos[None, :] > pos[:, None] - window
+    m = np.full((B, H, S, 1), -1e30, np.float32)
+    l = np.zeros((B, H, S, 1), np.float32)
+    o = np.zeros((B, H, S, D), np.float32)
+    for j0 in range(0, S, bkv):
+        mk = mask[:, j0:j0 + bkv]
+        st = np.where(mk, s[..., j0:j0 + bkv], np.float32(-1e30))
+        m_new = np.maximum(m, st.max(-1, keepdims=True))
+        p = np.where(mk, np.exp(st - m_new), 0).astype(np.float32)
+        corr = np.exp(m - m_new).astype(np.float32)
+        l = l * corr + p.sum(-1, keepdims=True)
+        o = o * corr + _mm3(p, vr[:, :, j0:j0 + bkv])
+        m = m_new
+    lc = np.maximum(l, np.float32(1e-30))
+    return (o / lc).astype(np.float32), (m + np.log(lc))[..., 0]
+
+
+# the reference's fp32 forward rows (SWEEP of tests/test_kernels_flash.py),
+# a ragged length with a window, and zamba2's head dim
+FWD32_ROWS = [
+    (2, 4, 2, 128, 16, True, 0),
+    (1, 4, 4, 64, 32, False, 0),
+    (2, 8, 2, 128, 16, True, 48),
+    (1, 2, 1, 96, 32, True, 8),
+    (1, 4, 2, 128, 80, True, 48),
+]
+
+
+@pytest.mark.parametrize("B,H,KH,S,D,causal,window", FWD32_ROWS)
+def test_fp32_forward_3xtf32_within_half_gate_of_reference(B, H, KH, S, D,
+                                                          causal, window):
+    rng = np.random.default_rng(B * 5 + H + KH + S + D)
+    mk = lambda h: rng.normal(size=(B, h, S, D)).astype(np.float32)
+    q, k, v = mk(H), mk(KH), mk(KH)
+    want, want_lse = refK.flash_fwd(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), causal=causal,
+                                    window=window, bq=32, bk=32)
+    want, want_lse = np.asarray(want), np.asarray(want_lse)
+    got, lse = _flash_fwd_3xtf32_model(q, k, v, causal, window,
+                                       32 if D >= 80 else 64)
+    assert np.isfinite(got).all() and got.shape == want.shape
+    assert float(np.abs(got - want).max()) < HALF * 2e-5
+    assert float(np.abs(lse - want_lse).max()) < HALF * 1e-4 * max(
+        1.0, float(np.abs(want_lse).max()))
+
+
+def test_fp32_forward_one_tf32_rounding_misses_half_gate():
+    """Why the fp32 forward splits: one TF32 rounding of q, k, p and v
+    (products exact, sums fp32) is outside half the 2e-5 gate at the
+    coverify_flash width (D = 64), the three-product split is not."""
+    rng = np.random.default_rng(9)
+    q, k, v = (rng.normal(size=(1, 4, 256, 64)).astype(np.float32)
+               for _ in range(3))
+    want, _ = refK.flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             causal=True, window=0, bq=32, bk=32)
+    want = np.asarray(want)
+    t = _tf32_np
+    s = (t(q) @ np.swapaxes(t(k), -1, -2)) / np.float32(8.0)
+    mask = np.tril(np.ones((256, 256), bool))
+    s = np.where(mask, s, -1e30)
+    p = np.where(mask, np.exp(s - s.max(-1, keepdims=True)), 0)
+    one = (t(p.astype(np.float32)) @ t(v)) / p.sum(-1, keepdims=True)
+    three, _ = _flash_fwd_3xtf32_model(q, k, v, True, 0, 64)
+    assert float(np.abs(one - want).max()) > HALF * 2e-5
+    assert float(np.abs(three - want).max()) < HALF * 2e-5
+
+
+def _pair(x):
+    """x as bf16 hi + lo (the kernel's pairs): hi, lo as fp32 values."""
+    hi = _bf16_np(x)
+    return hi, _bf16_np(x - hi)
+
+
+def _mmb(a, b, a_pair=True, b_pair=False):
+    """a @ b on bf16 tensor cores as the SSD body runs it: an fp32 operand
+    as hi + lo (a_pair / b_pair), a bf16 one exact; lo.hi + hi.lo + hi.hi
+    of what is split, products exact in fp32, fp32 sums."""
+    ah, al = _pair(a) if a_pair else (_bf16_np(a), 0.0 * a)
+    bh, bl = _pair(b) if b_pair else (_bf16_np(b), 0.0 * b)
+    out = ah @ bh
+    if a_pair:
+        out = out + al @ bh
+    if b_pair:
+        out = out + ah @ bl
+    return out.astype(np.float32)
+
+
+def _ssd_split_model(x, dt, Bm, Cm, A, D, cl, fp32_inputs):
+    """The SSD body's arithmetic, chunk by chunk: C B^T, M = C B^T exp(seg)
+    dt on the causal triangle, y = exp(cum) (C state_in^T) + M x + D x,
+    the chunk's own state (x w)^T B added to the decayed running state;
+    x, B, C exact (bf16 values) or hi + lo pairs (fp32 inputs)."""
+    Bz, L, H, P = x.shape
+    st = np.zeros((Bz, H, P, Bm.shape[-1]), np.float32)
+    y = np.zeros((Bz, L, H, P), np.float32)
+    f = fp32_inputs
+    tri = np.tril(np.ones((cl, cl), bool))
+    for c in range(L // cl):
+        r = slice(c * cl, (c + 1) * cl)
+        xc, dc, bc, cc = x[:, r], dt[:, r], Bm[:, r], Cm[:, r]
+        cum = np.cumsum(dc * A, axis=1).astype(np.float32)      # (B,cl,H)
+        cb = _mmb(cc, np.swapaxes(bc, 1, 2), f, f)               # (B,cl,cl)
+        seg = cum[:, :, None, :] - cum[:, None, :, :]
+        M = np.where(tri[None, :, :, None],
+                     cb[..., None] * np.exp(np.where(tri[None, :, :, None],
+                                                     seg, 0))
+                     * dc[:, None, :, :], 0).astype(np.float32)
+        Mh = np.moveaxis(M, 3, 1)                                # (B,H,i,j)
+        xh = np.moveaxis(xc, 2, 1)                               # (B,H,j,P)
+        intra = _mmb(Mh, xh, True, f)
+        inter = _mmb(cc[:, None], np.swapaxes(st, -1, -2), f, True)
+        yc = np.exp(np.moveaxis(cum, 2, 1))[..., None] * inter + intra
+        y[:, r] = np.moveaxis(yc, 1, 2) + D[None, None, :, None] * xc
+        w = dc * np.exp(cum[:, -1:] - cum)
+        xw = np.moveaxis(xc * w[..., None], 2, 1)                # (B,H,j,P)
+        own = _mmb(np.swapaxes(xw, -1, -2), bc[:, None], True, f)
+        st = st * np.exp(cum[:, -1])[..., None, None] + own
+    return y, st
+
+
+@pytest.mark.parametrize("inputs", ["fp32", "bf16"])
+@pytest.mark.parametrize("B,L,H,P,N,chunk", [(2, 64, 8, 16, 8, 16),
+                                             (1, 128, 4, 8, 16, 32)])
+def test_ssd_bf16_pairs_within_half_gate_of_reference(B, L, H, P, N, chunk,
+                                                     inputs):
+    """The reference's test rows (tests/test_kernels_misc.py), with fp32
+    inputs and with bf16-valued x, B, C (as served), against the
+    reference's Pallas kernel in interpret mode on the same values."""
+    rng = np.random.default_rng(L + H + P + N)
+    x = rng.normal(size=(B, L, H, P)).astype(np.float32)
+    dt = np.logaddexp(rng.normal(size=(B, L, H)), 0).astype(np.float32)
+    Bm = rng.normal(size=(B, L, N)).astype(np.float32)
+    Cm = rng.normal(size=(B, L, N)).astype(np.float32)
+    A = (-np.exp(rng.normal(size=(H,)) * 0.5)).astype(np.float32)
+    D = np.ones((H,), np.float32)
+    if inputs == "bf16":
+        x, Bm, Cm = _bf16_np(x), _bf16_np(Bm), _bf16_np(Cm)
+    want_y, want_st = refSSD.ssd_scan(*map(jnp.asarray, (x, dt, Bm, Cm, A, D)),
+                                      chunk=chunk, hb=min(8, H))
+    want_y, want_st = np.asarray(want_y), np.asarray(want_st)
+    got_y, got_st = _ssd_split_model(x, dt, Bm, Cm, A, D, chunk,
+                                     inputs == "fp32")
+    tol = 1e-3 * max(1.0, float(np.abs(want_y).max()),
+                     float(np.abs(want_st).max()))
+    assert np.isfinite(got_y).all() and got_y.shape == want_y.shape
+    assert float(np.abs(got_y - want_y).max()) < HALF * tol
+    assert float(np.abs(got_st - want_st).max()) < HALF * tol
