@@ -7,10 +7,14 @@ recurrence starting from a zero state.  ``wkv_scan`` launches the kernel
 for CUDA tensors (or raises) and takes ``wkv_scan_plain`` only for tensors
 that lie on the CPU.  ``chunk``/``hb`` keep the reference's clamping and
 divisibility contract, since they define the modeled burst list
-(``ops.transactions``); the kernel walks all L steps in one loop, which
-changes nothing but fp32 rounding.  The kernel has no backward (neither
-has the reference's): called directly, it refuses CUDA inputs that require
-a gradient; ``ops.wkv_scan`` differentiates it by recompute.
+(``ops.transactions``).  The kernel cuts L into chunks of its own
+(``kernel_chunk``): each chunk's own state in parallel, a short pass that
+sums them into the state entering each chunk, then each chunk's exact step
+walk from that state.  Only the incoming states are summed in another
+order than the reference's, which changes nothing but fp32 rounding.  The
+kernel has no backward (neither has the reference's): called directly, it
+refuses CUDA inputs that require a gradient; ``ops.wkv_scan``
+differentiates it by recompute.
 """
 from __future__ import annotations
 
@@ -24,9 +28,13 @@ from repro_torch.kernels import _build
 
 _HEAD_SIZES = (16, 32, 64, 128)
 
-# number of CUDA kernel launches made by ``wkv_scan`` (a plain integer; a
-# caller that wants a per-run count sets it to 0 first)
+# number of calls of ``wkv_scan`` that launched the kernel (its one to three
+# CUDA launches count once; a plain integer, a caller that wants a per-run
+# count sets it to 0 first)
 launches = 0
+
+# blocks of the output launch below which the kernel's chunk is halved
+_BLOCKS = 512
 
 
 def _shapes(r, k, v, w, u, chunk: int, hb: int):
@@ -63,13 +71,32 @@ def wkv_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y, state
 
 
-def _fn():
-    fn = _build.load("wkv_scan").wkv_scan
-    if not fn.argtypes:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+def kernel_chunk(B: int, L: int, H: int, K: int) -> int:
+    """The kernel's own chunk (steps one block walks, a multiple of its
+    8-step run; not the reference's ``chunk``): the largest of 128, 64, 32
+    and 16 that still gives the output launch ``_BLOCKS`` blocks, so that
+    long prompts move few chunk states and short ones still fill the
+    card."""
+    c = 128
+    while c > 16 and B * H * max(1, K // 64) * -(-L // c) < _BLOCKS:
+        c //= 2
+    return c
+
+
+def scratch_floats(B: int, L: int, H: int, K: int, C: int) -> int:
+    """Floats of scratch the kernel needs at kernel chunk ``C``: the own
+    states (B, nc-1, H, K, K) and total decays (B, nc-1, H, K) of every
+    chunk but the last, nc = ceil(L / C)."""
+    return B * (-(-L // C) - 1) * H * K * (K + 1)
+
+
+def _lib():
+    lib = _build.load("wkv_scan")
+    if not lib.wkv_scan.argtypes:
+        lib.wkv_scan.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 \
+            + [ctypes.c_void_p]
+        lib.wkv_scan.restype = ctypes.c_int
+    return lib
 
 
 def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -96,12 +123,18 @@ def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             t.data_ptr() % 16 for t in (r, k, w)):
         raise ValueError("kernel takes contiguous tensors, r/k/w 16-byte "
                          "aligned")
+    lib = _lib()
+    C = kernel_chunk(B, L, H, K)
     with torch.cuda.device(r.device):
         y = torch.empty((B, L, H, K), dtype=torch.float32, device=r.device)
         st = torch.empty((B, H, K, K), dtype=torch.float32, device=r.device)
-        err = _fn()(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-                    u.data_ptr(), y.data_ptr(), st.data_ptr(), B, L, H, K,
-                    torch.cuda.current_stream().cuda_stream)
+        # the chunks' own states and decays, from the caching allocator
+        scratch = torch.empty(scratch_floats(B, L, H, K, C),
+                              dtype=torch.float32, device=r.device)
+        err = lib.wkv_scan(r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           w.data_ptr(), u.data_ptr(), y.data_ptr(),
+                           st.data_ptr(), scratch.data_ptr(), B, L,
+                           H, K, C, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"wkv_scan launch refused: CUDA error {err}")
     launches += 1

@@ -285,17 +285,25 @@ def _scan_tol(*plain):
     return 1e-3 * max(1.0, max(float(t.abs().max()) for t in plain))
 
 
-@pytest.mark.parametrize("B,L,H,K", [
-    (2, 64, 4, 16), (1, 32, 8, 32),         # the reference's test rows
-    (1, 100, 2, 128),                       # ragged against the staged run
-    (1, 512, 64, 64),                       # rwkv6-7b's heads
+def _wkv_row(B, L, H, K, scale=1.0, id=None):
+    return pytest.param(B, L, H, K, scale, id=id or f"{B}-{L}-{H}-{K}")
+
+
+@pytest.mark.parametrize("B,L,H,K,scale", [
+    _wkv_row(2, 64, 4, 16), _wkv_row(1, 32, 8, 32),  # the reference's rows
+    _wkv_row(1, 100, 2, 128),               # ragged against the staged run
+    _wkv_row(1, 512, 64, 64),               # rwkv6-7b's heads
+    _wkv_row(1, 256, 64, 64),               # the shortest served prompt
+    # w = exp(-exp(3 N(0,1))): from ~1 - 5e-5 down to 0, so the chunks'
+    # decay products underflow while some channels barely decay
+    _wkv_row(1, 300, 4, 64, 3.0, id="1-300-4-64-extreme-decays"),
 ])
-def test_wkv_kernel_on_card(card, B, L, H, K):
+def test_wkv_kernel_on_card(card, B, L, H, K, scale):
     rng = np.random.default_rng(8)
     g = lambda *sh: torch.from_numpy(
         rng.normal(size=sh).astype(np.float32)).to(card)
     r, k, v = g(B, L, H, K), g(B, L, H, K), g(B, L, H, K)
-    w, u = torch.exp(-torch.exp(g(B, L, H, K))), g(H, K) * 0.5
+    w, u = torch.exp(-torch.exp(g(B, L, H, K) * scale)), g(H, K) * 0.5
     chunk = 16 if L % 16 == 0 else 4
     before = WKV.launches
     y, st = WKV.wkv_scan(r, k, v, w, u, chunk=chunk, hb=min(8, H))
@@ -308,6 +316,25 @@ def test_wkv_kernel_on_card(card, B, L, H, K):
         assert torch.isfinite(got).all()
         assert float((got - plain).abs().max()) < tol
         assert float((got - oracle).abs().max()) < tol
+
+
+def test_wkv_kernel_takes_v_off_a_16_byte_boundary(card):
+    """A contiguous v whose data starts 4 bytes past a 16-byte boundary is
+    staged with 4-byte copies; r/k/w must be aligned (refused otherwise)."""
+    B, L, H, K = 1, 100, 2, 64
+    rng = np.random.default_rng(9)
+    g = lambda *sh: torch.from_numpy(
+        rng.normal(size=sh).astype(np.float32)).to(card)
+    r, k, v = g(B, L, H, K), g(B, L, H, K), g(B, L, H, K)
+    w, u = torch.exp(-torch.exp(g(B, L, H, K))), g(H, K) * 0.5
+    v_off = torch.empty(v.numel() + 1, device=card)[1:].view_as(v)
+    v_off.copy_(v)
+    assert v_off.is_contiguous() and v_off.data_ptr() % 16 == 4
+    y, st = WKV.wkv_scan(r, k, v_off, w, u, chunk=4, hb=1)
+    py, pst = WKV.wkv_scan_plain(r, k, v, w, u, chunk=4, hb=1)
+    tol = _scan_tol(py, pst)
+    assert float((y - py).abs().max()) < tol
+    assert float((st - pst).abs().max()) < tol
 
 
 @pytest.mark.parametrize("B,L,H,P,N,chunk,dt", [
