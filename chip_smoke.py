@@ -6,15 +6,26 @@
 Builds the hand-written kernels from ``src/repro_torch/kernels/csrc`` into
 ``build/`` (one ``nvcc`` per source, all started together), holds each
 kernel against its plain PyTorch version and its ``ref.py`` oracle on the
-card, and drives the port's three paths:
+card, and drives the port's paths:
 
   * co-verification — ``coverify()`` over the oracle / interpret / compiled
     backends for the systolic matmul and the flash-attention forward,
     through the congestion-arbitrated bridge (``compiled``: the oracle's
     maths through ``torch.compile``, built once before the timed
-    iterations, its build seconds on a line of their own), then the
-    committed single-device golden trace and counter stream regenerated
-    byte for byte;
+    iterations, its build seconds on a line of their own), then every
+    committed golden trace and counter stream of the single-device, fuzz
+    and fabric programs (``repro_torch/goldens.py``) regenerated byte for
+    byte;
+  * fuzzing — ``ProtocolFuzzer`` over 24 scenarios of its four layers
+    (bridge: the three backends on the systolic matmul at 32-64 cubed;
+    registers; serving and arrivals: llama3.2-1b at full width, bf16
+    weights from a seed), a same-seed rerun, and the planted-bug table
+    caught and shrunk to one op;
+  * fabric — the row-sharded matmul (4096, tile 128) and head-sharded
+    attention (H=32, S=2048, D=64) firmwares on 4 modeled devices of the
+    one card: three backends EQUIVALENT, bit-identical to 1 device, a
+    ring-routed rerun with the same result and another timing, a
+    same-seed rerun with the same digest;
   * training — llama3.2-1b at full width (16 layers, seq 2048, batch 2,
     bf16 compute, ``attn_impl="pallas"``): one loss + backward with the
     kernels against the naive attention, then three ``Trainer`` steps with
@@ -34,8 +45,9 @@ card, and drives the port's three paths:
 Every line of standard output is one JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure (no CUDA device, a build or
 launch error, a tolerance miss, a non-EQUIVALENT report, a golden mismatch,
-a non-finite loss, a wrong launch count) ends the run with a non-zero exit
-code and no last line.
+a failed fuzz scenario, an open protocol bin, a digest that does not repeat,
+a non-finite loss, a wrong launch count, a ``torch.compile`` recompile limit
+hit) ends the run with a non-zero exit code and no last line.
 """
 from __future__ import annotations
 
@@ -59,17 +71,21 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import goldens
 from repro_torch._device import true_fp32
 from repro_torch._tree import leaves, tree_map
 from repro_torch.configs import get_config, smoke
-from repro_torch.core import CongestionConfig, FireBridge, coverify
-from repro_torch.core.counters import counter_banks
+from repro_torch.core import (FABRIC_LINK, CongestionConfig, FabricCluster,
+                              FuzzReport, ProtocolFuzzer, compare_outputs,
+                              coverify)
+from repro_torch.core.fuzz import _default_engine, planted_bug_table
 from repro_torch.data.synthetic import SyntheticLMDataset
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import kernel as FAK
 from repro_torch.kernels.flash_attention import ref as FAref
 from repro_torch.kernels.flash_attention.sweep import (_inputs as fa_inputs,
                                                        flash_backends,
+                                                       flash_fabric_firmware,
                                                        flash_firmware)
 from repro_torch.kernels.mamba2_scan import kernel as SSDK
 from repro_torch.kernels.mamba2_scan import ops as ssd_ops
@@ -80,6 +96,7 @@ from repro_torch.kernels.rwkv6_wkv import ref as WKVref
 from repro_torch.kernels.systolic_matmul import kernel as MMK
 from repro_torch.kernels.systolic_matmul import ref as MMref
 from repro_torch.kernels.systolic_matmul.sweep import (matmul_backends,
+                                                       matmul_fabric_firmware,
                                                        matmul_firmware)
 from repro_torch.launch import steps as steps_lib
 from repro_torch.launch.steps import make_train_state, make_train_step
@@ -243,7 +260,9 @@ def phase_build() -> None:
 # (M, N, K, tile, dtype); the first three are the reference test rows, then
 # the largest Fig. 5 case, the full-size main-path shape, a shape ragged for
 # the fp32 body (K no multiple of 8, M and N no multiple of its C tile), and
-# a longer K, where the tensor core's accumulation error shows most.
+# a longer K, where the tensor core's accumulation error shows most; then
+# the fuzzer's bridge-layer launches (32, 48, 64 cubed at tile 16) and one
+# device's row shard of the 4-device matmul fabric cell.
 MM_SHAPES = [
     (256, 128, 128, 64, torch.float32),
     (128, 256, 512, 64, torch.bfloat16),
@@ -253,8 +272,14 @@ MM_SHAPES = [
     (4096, 4096, 4096, 128, torch.bfloat16),
     (100, 300, 250, 50, torch.float32),
     (2048, 2048, 8192, 128, torch.float32),
+    (32, 32, 32, 16, torch.float32),
+    (48, 48, 48, 16, torch.float32),
+    (64, 64, 64, 16, torch.float32),
+    (1024, 4096, 4096, 128, torch.float32),
 ]
 MM_MAIN = 4          # index of the shape coverify_matmul runs
+MM_FUZZ = (8, 9, 10)  # the fuzzer's bridge-layer launches
+MM_SHARD = 11        # one device's launch of the 4-device matmul fabric cell
 # the fp32 body keeps 3xTF32 only while every fp32 row is within half its
 # gate (the rule that chose hi + lo for the attention backward)
 SPLIT_RULE = 0.5
@@ -264,7 +289,8 @@ SPLIT_RULE = 0.5
 # coverify_flash (flash_firmware is MHA fp32), the shape train_llama gives
 # the kernel (the models call it with bq=bk=512), zamba2's, then the bf16
 # tensor-core body at head dims 16 and 32 and at a length that is no
-# multiple of its 128-row tiles.
+# multiple of its 128-row tiles; last, one device's launch of the
+# 4-device head-sharded attention fabric cell.
 FA_SHAPES = [
     (2, 4, 2, 128, 16, True, 0, torch.float32, 32),
     (1, 4, 4, 64, 32, False, 0, torch.float32, 32),
@@ -280,10 +306,12 @@ FA_SHAPES = [
     (2, 4, 2, 128, 16, True, 0, torch.bfloat16, 32),
     (1, 4, 4, 64, 32, False, 0, torch.bfloat16, 32),
     (1, 8, 2, 200, 64, True, 0, torch.bfloat16, 40),
+    (1, 8, 8, 2048, 64, True, 0, torch.float32, 128),
 ]
 FA_MAIN = 8
 FA_TRAIN = 9
 FA_ZAMBA = 10        # zamba2-2.7b's shared attention: head dim 80, window
+FA_SHARD = 14        # one device's launch of the 4-device fabric cell
 
 # Backward: the reference's gradient rows (SWEEP[:3] of
 # tests/test_kernels_flash.py), a GQA row with G=4 (a missing head sum shows
@@ -954,26 +982,267 @@ def phase_coverify_flash(card: str, fa_rows) -> int:
 
 # ------------------------------------------------------------------ phase 6
 def phase_golden() -> None:
-    fb = FireBridge(congestion=CongestionConfig(**CONG))
-    fb.register_op("mm", **matmul_backends(tile=16, device="cuda"))
-    matmul_firmware(fb, "mm", "oracle", size=32, tile=16)
-    trace = fb.log.canonical()
-    counters = [ln for bank in counter_banks(fb) for ln in bank.canonical()]
+    """Every committed golden file the port's programs produce
+    (``repro_torch/goldens.py``), regenerated on the card byte for byte."""
     out = {"phase": "golden"}
-    for kind, live in (("trace", trace), ("counters", counters)):
-        path = GOLDEN / f"single_device_launch.{kind}"
-        want = path.read_text().splitlines()
-        if live != want:
-            first = next((i for i, (x, y) in enumerate(zip(live, want))
-                          if x != y), min(len(live), len(want)))
-            fail(f"golden {kind}: first divergent line {first + 1} "
-                 f"(live {len(live)} lines, golden {len(want)})")
-        sha = hashlib.sha256(("\n".join(live) + "\n").encode()).hexdigest()
-        if sha != hashlib.sha256(path.read_bytes()).hexdigest():
-            fail(f"golden {kind}: lines equal but bytes differ")
-        out[f"{kind}_sha256"] = sha
-        out[f"{kind}_lines"] = len(live)
+    for name, program in goldens.PROGRAMS.items():
+        target = program("cuda")
+        files = [("trace", goldens.trace_lines(target))]
+        if name in goldens.COUNTER_TRACES:
+            files.append(("counters", goldens.counter_lines(target)))
+        for kind, live in files:
+            path = GOLDEN / f"{name}.{kind}"
+            want = path.read_text().splitlines()
+            if live != want:
+                first = next((i for i, (x, y) in enumerate(zip(live, want))
+                              if x != y), min(len(live), len(want)))
+                fail(f"golden {name}.{kind}: first divergent line "
+                     f"{first + 1} (live {len(live)} lines, golden "
+                     f"{len(want)})")
+            sha = hashlib.sha256(("\n".join(live) + "\n").encode()
+                                 ).hexdigest()
+            if sha != hashlib.sha256(path.read_bytes()).hexdigest():
+                fail(f"golden {name}.{kind}: lines equal but bytes differ")
+            out[f"{name}.{kind}"] = {"sha256": sha, "lines": len(live)}
     emit(out)
+
+
+# ------------------------------------------------------------ phases 6b, 6c
+FUZZ_LAYERS = ("bridge", "registers", "serving", "arrivals")
+FUZZ_SCENARIOS = 24
+FABRIC_CELLS = {
+    "matmul": dict(size=4096, tile=128),
+    "flash": dict(batch=1, heads=32, seq=2048, dim=64, bq=128, bk=128),
+}
+FABRIC_DEVICES = 4
+FABRIC_DOS = dataclasses.replace(FABRIC_LINK, dos_prob=0.05, seed=11)
+
+
+def compiled_graphs() -> int:
+    """Graphs ``torch.compile`` has built in this process so far."""
+    from torch._dynamo.utils import counters
+    return int(counters["stats"]["unique_graphs"])
+
+
+def fuzz_layer_rows(results, wall: dict) -> dict:
+    rows = {}
+    for layer in FUZZ_LAYERS:
+        mine = [r for r in results if r.layer == layer]
+        faults: dict = {}
+        for r in mine:
+            for ev in r.faults:
+                faults[ev.kind] = faults.get(ev.kind, 0) + 1
+        rows[layer] = {"scenarios": len(mine), "wall_s": wall.get(layer, 0.0),
+                       "faults": faults,
+                       "transactions": sum(r.n_txs for r in mine)}
+    return rows
+
+
+def phase_fuzz(card: str) -> int:
+    """``ProtocolFuzzer`` over all four layers on the card: the bridge
+    layer's three backends (``interpret`` = B1 at 32-64 cubed, tile 16;
+    ``compiled`` = ``torch.compile``), the serving and arrivals layers on
+    llama3.2-1b at full width (16 layers, bf16 weights from a seeded
+    generator, ``_default_engine``'s geometry).  Returns B1's launches in
+    the main run."""
+    t_phase = time.perf_counter()
+    graphs0 = compiled_graphs()
+    t0 = time.perf_counter()
+    engine = _default_engine(device="cuda", cfg=get_config("llama3.2-1b"))
+    torch.cuda.synchronize()
+    engine_s = time.perf_counter() - t0
+    factory = lambda: engine                                  # noqa: E731
+    fz = ProtocolFuzzer(seed=0, layers=FUZZ_LAYERS, engine_factory=factory,
+                        device="cuda")
+    table = fz._matmul_table()
+    if table["compiled"] is table["oracle"]:
+        fail("fuzz: the compiled backend is the oracle callable")
+    compile_s = {}
+    for size in fz.SIZES:                 # built before the timed run
+        rng = np.random.default_rng(size)
+        ab = [rng.normal(size=(size, size)).astype(np.float32)
+              for _ in range(2)]
+        t = time.perf_counter()
+        table["compiled"](*ab)
+        compile_s[str(size)] = time.perf_counter() - t
+    emit({"phase": "fuzz_compiled_tier", "card": card,
+          "compile_s": compile_s, "compiled_graphs": compiled_graphs()
+          - graphs0})
+
+    MMK.launches = 0
+    wall: dict = {}
+    results = []
+    t0 = time.perf_counter()
+    for i in range(FUZZ_SCENARIOS):
+        scn = fz.scenario(i)
+        t = time.perf_counter()
+        results.append(fz.run_scenario(scn))
+        wall[scn.layer] = wall.get(scn.layer, 0.0) + time.perf_counter() - t
+    run_s = time.perf_counter() - t0
+    launches = MMK.launches
+    report = FuzzReport(fz.seed, results, coverage=fz.coverage)
+    summary = report.summary()
+
+    t = time.perf_counter()
+    rerun = ProtocolFuzzer(seed=0, layers=FUZZ_LAYERS, engine_factory=factory,
+                           mm_table=table, device="cuda").run(FUZZ_SCENARIOS)
+    rerun_s = time.perf_counter() - t
+
+    MMK.launches = 0
+    t = time.perf_counter()
+    bug = ProtocolFuzzer(seed=0, layers=("bridge",), device="cuda",
+                         mm_table=planted_bug_table(device="cuda"))
+    bug_report = bug.run(3)
+    caught = bug_report.failures()
+    shrunk = None
+    if caught:
+        scn = bug.scenario(caught[0].index)
+        sub, res = bug.shrink(scn, use_replay=False)
+        shrunk = {"scenario": scn.index, "ops": len(scn.ops),
+                  "shrunk_ops": len(sub.ops), "still_fails": not res.ok,
+                  "prefix": sub.ops == scn.ops[:len(sub.ops)],
+                  "divergence": any("divergence" in f
+                                    for f in caught[0].failures)}
+    bug_s = time.perf_counter() - t
+    bug_launches = MMK.launches
+
+    row = {"phase": "fuzz", "card": card, "seed": fz.seed,
+           "scenarios": FUZZ_SCENARIOS, "engine": "llama3.2-1b",
+           "engine_build_s": engine_s, "run_s": run_s,
+           "layers": fuzz_layer_rows(results, wall),
+           "passed": report.passed, "digest": report.digest,
+           "rerun_digest": rerun.digest, "rerun_s": rerun_s,
+           "protocol_percent": report.coverage.percent("protocol"),
+           "coverage": summary["coverage"],
+           "violations_audited": summary["violations_audited"],
+           "b1_launches": launches, "planted_bug": shrunk,
+           "planted_bug_s": bug_s, "planted_bug_b1_launches": bug_launches,
+           "compiled_graphs": compiled_graphs() - graphs0,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(row)
+    if not report.passed:
+        fail(f"fuzz: scenarios failed: {summary['failures']}")
+    if report.coverage.percent("protocol") != 100.0:
+        fail(f"fuzz: protocol bins not closed: "
+             f"{report.coverage.holes('protocol')}")
+    if rerun.digest != report.digest:
+        fail("fuzz: a same-seed rerun gave another digest")
+    if not (shrunk and shrunk["divergence"] and shrunk["still_fails"]
+            and shrunk["prefix"] and shrunk["shrunk_ops"] == 1):
+        fail(f"fuzz: planted bug not caught and shrunk to 1 op: {shrunk}")
+    if launches < 1:
+        fail("fuzz: the bridge layer never launched B1")
+    del engine, fz, rerun, bug
+    gc.collect()                      # the engine's cycles hold its weights
+    torch.cuda.empty_cache()
+    return launches
+
+
+def fabric_run(cell: str, table: dict, n: int, backend: str,
+               topology=None) -> dict:
+    """One sharded launch of a fabric cell on ``n`` modeled devices."""
+    fab = FabricCluster(n, congestion=CongestionConfig(**CONG),
+                        link_config=FABRIC_DOS, topology=topology)
+    fab.register_op("op", **table)
+    firmware = (matmul_fabric_firmware if cell == "matmul"
+                else flash_fabric_firmware)
+    mm0, fa0, graphs0 = MMK.launches, FAK.launches, compiled_graphs()
+    t = time.perf_counter()
+    firmware(fab, "op", backend, **FABRIC_CELLS[cell])
+    wall = time.perf_counter() - t
+    return {"outputs": fab.outputs(), "digest": fab.digest(),
+            "time": fab.time, "wall_s": wall,
+            "link_stall": fab.total_link_stall(),
+            "transactions": fab.log.n_txs + sum(d.log.n_txs
+                                                for d in fab.devices),
+            "b1_launches": MMK.launches - mm0,
+            "b2_launches": FAK.launches - fa0,
+            "compiled_graphs": compiled_graphs() - graphs0}
+
+
+def phase_fabric(card: str) -> dict:
+    """The two fabric firmwares at full size on 4 modeled devices, all
+    modeled on this one card: the three backends EQUIVALENT; the 4-device
+    ``interpret`` result bit-identical to the 1-device one; a ring-routed
+    rerun with the same host result and another fabric timing; a
+    same-seed rerun with the same digest.  Returns each kernel's launches
+    in the phase."""
+    t_phase = time.perf_counter()
+    graphs0 = compiled_graphs()
+    MMK.launches = 0
+    FAK.launches = 0
+    out = {"phase": "fabric", "card": card, "devices": FABRIC_DEVICES}
+    for cell, cfg in FABRIC_CELLS.items():
+        if cell == "matmul":
+            table = matmul_backends(tile=cfg["tile"], device="cuda")
+            rng = np.random.default_rng(cfg["size"])
+            a = rng.normal(size=(cfg["size"], cfg["size"])).astype(np.float32)
+            shard = (a[:cfg["size"] // FABRIC_DEVICES], a)
+            oname = "c"
+        else:
+            table = flash_backends(bq=cfg["bq"], bk=cfg["bk"], causal=True,
+                                   device="cuda")
+            qkv = fa_inputs(cfg["batch"], cfg["heads"], cfg["seq"],
+                            cfg["dim"])
+            h = cfg["heads"] // FABRIC_DEVICES
+            # a fresh C-ordered copy: numpy counts the B=1 slice as
+            # contiguous and keeps its parent's batch stride, which the
+            # compiled tier's guards would tell from a device buffer's
+            shard = tuple(x[:, :h].copy() for x in qkv)
+            oname = "o"
+        t = time.perf_counter()
+        table["compiled"](*shard)          # built before the timed runs
+        build_s = time.perf_counter() - t
+        t = time.perf_counter()
+        table["compiled"](*shard)
+        warm_s = time.perf_counter() - t
+        runs = {be: fabric_run(cell, table, FABRIC_DEVICES, be)
+                for be in ("oracle", "interpret", "compiled")}
+        one = fabric_run(cell, table, 1, "interpret")
+        ring = fabric_run(cell, table, FABRIC_DEVICES, "interpret",
+                          topology="ring")
+        again = fabric_run(cell, table, FABRIC_DEVICES, "interpret")
+        eq = compare_outputs({be: r["outputs"] for be, r in runs.items()},
+                             tol=1e-3)
+        got = runs["interpret"]["outputs"][oname]
+        checks = {
+            "equivalence": str(eq), "passed": eq.passed,
+            "bit_identical_to_1dev": bool(np.array_equal(
+                got, one["outputs"][oname])),
+            "ring_same_result": bool(np.array_equal(
+                got, ring["outputs"][oname])),
+            "ring_other_timing": ring["time"] != runs["interpret"]["time"],
+            "rerun_same_digest": again["digest"] == runs["interpret"]["digest"],
+        }
+        out[cell] = {
+            **FABRIC_CELLS[cell], **checks, "compiled_build_s": build_s,
+            "compiled_warm_call_s": warm_s,
+            "cells": {name: {k: r[k] for k in ("wall_s", "link_stall",
+                                               "transactions", "time",
+                                               "b1_launches", "b2_launches",
+                                               "compiled_graphs")}
+                      for name, r in [*((f"{be}@{FABRIC_DEVICES}dev", r)
+                                        for be, r in runs.items()),
+                                      ("interpret@1dev", one),
+                                      (f"interpret@{FABRIC_DEVICES}dev_ring",
+                                       ring),
+                                      (f"interpret@{FABRIC_DEVICES}dev_rerun",
+                                       again)]},
+            "digest": runs["interpret"]["digest"][:16]}
+        if not all(v for k, v in checks.items() if k != "equivalence"):
+            emit(out)
+            fail(f"fabric {cell}: {checks}")
+        del runs, one, ring, again
+    launches = {"systolic_matmul": MMK.launches, "flash_fwd": FAK.launches}
+    out["launches"] = launches
+    out["compiled_graphs"] = compiled_graphs() - graphs0
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    if min(launches.values()) < 1:
+        fail(f"fabric: a kernel was never launched: {launches}")
+    gc.collect()                      # clusters' cycles hold GBs of buffers
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ------------------------------------------------------------------ phase 7
@@ -1581,11 +1850,13 @@ def phase_serve(card: str, arch: str) -> dict:
 
 
 # --------------------------------------------------------------------- main
-def kernel_entry(name, sources, replaces, main_row, rows, launches) -> dict:
+def kernel_entry(name, sources, replaces, main_row, rows, launches,
+                 path_rows=None) -> dict:
     """``sources`` names the file with the kernel's C entry point first,
     then every other file that implements it; ``launches`` maps each main
     path that runs the kernel to its count there, and the entry's
-    ``launches`` is their sum."""
+    ``launches`` is their sum; ``path_rows`` names the rows at the shapes
+    another path launches."""
     sources = [sources] if isinstance(sources, str) else sources
     return {"name": name, "route": "cuda", "source": sources[0],
             "sources": sources,
@@ -1607,6 +1878,7 @@ def kernel_entry(name, sources, replaces, main_row, rows, launches) -> dict:
                                 if k in ("shape", "tile", "block", "dtype",
                                          "causal", "window", "chunk",
                                          "kernel_chunk")},
+            **({"path_rows": path_rows} if path_rows else {}),
             "shapes": rows}
 
 
@@ -1618,22 +1890,29 @@ def main() -> int:
         return 2
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
+    # past dynamo's recompile limit a frame would quietly run eagerly,
+    # hiding the compiled tier: make that an error instead
+    torch._dynamo.config.fail_on_recompile_limit_hit = True
     card = phase_env()
     phase_build()
     mm_rows, fa_rows, dkdv_rows, dq_rows, wkv_rows, ssd_rows = phase_kernels()
     mm_launches = phase_coverify_matmul(card, mm_rows)
     fa_launches = phase_coverify_flash(card, fa_rows)
     phase_golden()
+    fuzz_launches = phase_fuzz(card)
+    fabric = phase_fabric(card)
     train = phase_train_llama(card)
     ssm = phase_train_ssm(card)
     rwkv = phase_serve(card, "rwkv6-7b")
     zamba = phase_serve(card, "zamba2-2.7b")
-    if mm_launches < 1 or fa_launches < 1 or min(train.values()) < 1 or \
+    if mm_launches < 1 or fa_launches < 1 or fuzz_launches < 1 or \
+            min(fabric.values()) < 1 or min(train.values()) < 1 or \
             min(ssm.values()) < 1 or min(rwkv.values()) < 1 or \
             min(zamba.values()) < 1:
         fail(f"main path missed a kernel: matmul={mm_launches} "
-             f"flash={fa_launches} train={train} train_ssm={ssm} "
-             f"serve_rwkv6={rwkv} serve_zamba2={zamba}")
+             f"flash={fa_launches} fuzz={fuzz_launches} fabric={fabric} "
+             f"train={train} train_ssm={ssm} serve_rwkv6={rwkv} "
+             f"serve_zamba2={zamba}")
     src = "src/repro_torch/kernels/csrc/"
     ref = "src/repro/kernels/"
     emit({"kernels": [
@@ -1642,7 +1921,10 @@ def main() -> int:
                                          src + "sm90.cuh"],
                      ref + "systolic_matmul/kernel.py:52",
                      mm_rows[MM_MAIN], mm_rows,
-                     {"coverify_matmul": mm_launches}),
+                     {"coverify_matmul": mm_launches, "fuzz": fuzz_launches,
+                      "fabric": fabric["systolic_matmul"]},
+                     {"fuzz": [mm_rows[i] for i in MM_FUZZ],
+                      "fabric": mm_rows[MM_SHARD]}),
         kernel_entry("flash_fwd", [src + "flash_fwd.cu",
                                    src + "flash_fwd_tf32_sm90.cuh",
                                    src + "flash_fwd_sm90.cuh",
@@ -1650,9 +1932,11 @@ def main() -> int:
                      ref + "flash_attention/kernel.py:109",
                      fa_rows[FA_MAIN], fa_rows,
                      {"coverify_flash": fa_launches,
+                      "fabric": fabric["flash_fwd"],
                       "train_llama": train["flash_fwd"],
                       "train_ssm": ssm["flash_fwd"],
-                      "serve_zamba2": zamba["flash_fwd"]}),
+                      "serve_zamba2": zamba["flash_fwd"]},
+                     {"fabric": fa_rows[FA_SHARD]}),
         kernel_entry("flash_dkdv", [src + "flash_bwd.cu",
                                     src + "flash_dkdv_sm90.cuh",
                                     src + "sm90.cuh"],

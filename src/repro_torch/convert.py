@@ -6,63 +6,114 @@ handed what the reference produced, never the reference package itself.
 from __future__ import annotations
 
 import copy
-from typing import Any, Dict, Union
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
 from repro_torch._tree import tree_map
+from repro_torch.core.fuzz import FaultEvent
 from repro_torch.core.transactions import Transaction
 
 _TX_FIELDS = ("time", "engine", "kind", "addr", "nbytes", "tag", "stall",
               "complete", "dos", "fault_delay")
 
 
-def bridge_state_from_reference(state: Dict[str, Any]) -> Dict[str, Any]:
-    """Turn the dict the reference's ``FireBridge.get_state()`` returns
-    (DDR arrays, allocation cursor, clock, log, link arbiter + RNG,
-    counters, CSRs) into what the port's ``FireBridge.set_state`` accepts.
+class _Carrier:
+    """Converts one reference snapshot's records into the port's types.
+    One carrier per snapshot: a transaction that several logs and link
+    timelines share stays one shared object, as after a run of the port
+    itself."""
 
-    Transaction records become the port's own ``Transaction`` objects; a
-    record that the log and the link timeline share stays one shared
-    object, as after a run of the port itself.  A snapshot taken under a
-    fault plan is refused: the port has no fault plan yet.
-    """
-    mem = state["mem"]
-    if mem.get("fault_plan") is not None:
-        raise ValueError("snapshot carries fault-plan state; the port's "
-                         "bridge has no fault plan to restore it into")
-    memo: Dict[int, Transaction] = {}
+    def __init__(self) -> None:
+        self._memo: Dict[int, Transaction] = {}
 
-    def tx(t: Any) -> Transaction:
-        new = memo.get(id(t))
+    def tx(self, t: Any) -> Transaction:
+        new = self._memo.get(id(t))
         if new is None:
             new = Transaction(*(getattr(t, f) for f in _TX_FIELDS))
-            memo[id(t)] = new
+            self._memo[id(t)] = new
         return new
 
-    log = mem["log"]
-    link = mem["link"]
-    if link is not None:
-        link = dict(copy.deepcopy({k: v for k, v in link.items()
+    def link(self, link: Optional[Dict[str, Any]]
+             ) -> Optional[Dict[str, Any]]:
+        if link is None:
+            return None
+        return dict(copy.deepcopy({k: v for k, v in link.items()
                                    if k != "timeline"}),
-                    timeline=[tx(t) for t in link["timeline"]])
-    return {
-        "mem": {
+                    timeline=[self.tx(t) for t in link["timeline"]])
+
+    @staticmethod
+    def plan(plan: Optional[Dict[str, Any]]) -> Optional[Dict[str, Any]]:
+        """A ``FaultPlan.get_state()``: the numpy bit-generator state as it
+        is (a plain dict), each event as the port's ``FaultEvent``."""
+        if plan is None:
+            return None
+        return {"rng": copy.deepcopy(plan["rng"]),
+                "events": [FaultEvent(*ev.key()) for ev in plan["events"]]}
+
+    def mem(self, mem: Dict[str, Any]) -> Dict[str, Any]:
+        log = mem["log"]
+        return {
             "buffers": {n: (int(addr), np.array(arr, copy=True))
                         for n, (addr, arr) in mem["buffers"].items()},
             "next": mem["next"],
             "time": mem["time"],
-            "log": {"txs": [tx(t) for t in log["txs"]],
+            "log": {"txs": [self.tx(t) for t in log["txs"]],
                     "violations": list(log["violations"]),
                     "faults": list(log["faults"])},
-            "link": link,
-            "fault_plan": None,
+            "link": self.link(mem["link"]),
+            "fault_plan": self.plan(mem.get("fault_plan")),
             "counters": copy.deepcopy(mem.get("counters")),
-        },
-        "csr": {"vals": dict(state["csr"]["vals"]),
-                "time": state["csr"]["time"]},
+        }
+
+    def bridge(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        return {"mem": self.mem(state["mem"]),
+                "csr": {"vals": dict(state["csr"]["vals"]),
+                        "time": state["csr"]["time"]}}
+
+
+def bridge_state_from_reference(state: Dict[str, Any]) -> Dict[str, Any]:
+    """Turn the dict the reference's ``FireBridge.get_state()`` returns
+    (DDR arrays, allocation cursor, clock, log, link arbiter + RNG,
+    fault plan, counters, CSRs) into what the port's
+    ``FireBridge.set_state`` accepts.
+
+    Transaction records become the port's own ``Transaction`` objects and
+    fault events its ``FaultEvent``s; the fault plan's numpy bit-generator
+    state carries over as it is, so the port's plan draws the reference's
+    remaining fault stream.  The port's bridge must have been built with
+    a fault plan when the snapshot carries one (as for the reference's own
+    ``set_state``).
+    """
+    return _Carrier().bridge(state)
+
+
+def fabric_state_from_reference(state: Dict[str, Any]) -> Dict[str, Any]:
+    """Turn the reference's ``FabricCluster.get_state()`` (every device's
+    bridge, the host staging DDR whose log is the fabric log, the host
+    channel and port arbiters, the switch ports with their credit windows,
+    the fabric clock, the fabric-link fault plan, the counter banks) into
+    what the port's ``FabricCluster.set_state`` accepts."""
+    c = _Carrier()
+    switch = state.get("switch")
+    if switch is not None:
+        switch = {"ports": [
+            {"link": c.link(p["link"]), "inflight": list(p["inflight"]),
+             "credit_stall": p["credit_stall"],
+             "credit_waits": p["credit_waits"],
+             "credit_grants": p["credit_grants"]}
+            for p in switch["ports"]]}
+    return {
+        "devices": [c.bridge(d) for d in state["devices"]],
+        "host": c.mem(state["host"]),
+        "host_link": c.link(state["host_link"]),
+        "ports": [c.link(p) for p in state["ports"]],
+        "switch": switch,
+        "time": state["time"],
+        "fault_plan": c.plan(state["fault_plan"]),
+        "counters": copy.deepcopy(state.get("counters")),
     }
 
 

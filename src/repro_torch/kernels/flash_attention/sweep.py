@@ -1,6 +1,11 @@
 """Reusable flash-attention co-verification sweep pieces (kernel layout
 B,H,S,D), mirroring kernels/systolic_matmul/sweep.py: one firmware + one
-backend table.
+backend table, plus the head-sharded fabric firmware.
+
+Heads are independent in attention, so the fabric layout
+(sharding/specs.py "flash_attention": shard q/k/v/o on H) gathers to a
+bit-identical result vs the single-device launch whenever the device
+count divides both H and KH.
 """
 from __future__ import annotations
 
@@ -11,6 +16,7 @@ from repro_torch.kernels._compiled import compiled_tier
 from repro_torch.kernels.flash_attention import kernel as K
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as R
+from repro_torch.sharding.specs import FABRIC_OP_SPECS
 
 
 def _inputs(batch: int, heads: int, seq: int, dim: int):
@@ -67,3 +73,23 @@ def flash_firmware(fb, op, backend, *, batch=1, heads=8, seq=64, dim=16,
               burst_list=lambda: fa_ops.transactions(
                   batch, heads, seq, seq, dim, bq=bq, bk=bk, causal=True,
                   dtype_bytes=4))
+
+
+def flash_fabric_firmware(fab, op, backend, *, batch=1, heads=8, seq=64,
+                          dim=16, bq: int = 32, bk: int = 32):
+    """Head-sharded fabric counterpart of ``flash_firmware`` (same seeded
+    data, same host buffer names): scatter q/k/v on H, device-local
+    launches with shard-sized burst lists, gather o on H."""
+    from repro_torch.core.fabric import sharded_launch
+
+    if heads % fab.n:
+        raise ValueError(f"device count {fab.n} must divide heads {heads}")
+    q, k, v = _inputs(batch, heads, seq, dim)
+    sharded_launch(
+        fab, op, backend,
+        inputs={"q": q, "k": k, "v": v},
+        output=("o", q.shape, np.float32),
+        specs=FABRIC_OP_SPECS["flash_attention"],
+        burst_list=lambda dev, shapes: fa_ops.transactions(
+            batch, shapes["q"][1], seq, seq, dim, bq=bq, bk=bk, causal=True,
+            dtype_bytes=4))

@@ -1,7 +1,8 @@
 """Reusable matmul co-verification sweep pieces (paper Fig. 5 cells).
 
-One firmware + one backend table for the systolic matmul.  The firmware
-signature is ``firmware(fb, op, backend, **config)``.
+One firmware + one backend table for the systolic matmul, plus the
+row-sharded fabric firmware.  The firmware signature is
+``firmware(fb, op, backend, **config)``.
 """
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import numpy as np
 from repro_torch._device import resolve_device, to_device
 from repro_torch.kernels._compiled import compiled_tier
 from repro_torch.kernels.systolic_matmul import ops as mm_ops, ref as mm_ref
+from repro_torch.sharding.specs import FABRIC_OP_SPECS
 
 
 def matmul_firmware(fb, op, backend, *, size, tile: int = 32):
@@ -27,6 +29,28 @@ def matmul_firmware(fb, op, backend, *, size, tile: int = 32):
               burst_list=lambda: mm_ops.transactions(
                   size, size, size, bm=tile, bn=tile, bk=tile,
                   dtype_bytes=4))
+
+
+def matmul_fabric_firmware(fab, op, backend, *, size, tile: int = 32):
+    """Sharded fabric counterpart of ``matmul_firmware`` (same seeded data,
+    same host buffer names): row-shard A/C across the cluster, broadcast B
+    — the ``sharding/specs.py`` "systolic_matmul" fabric layout — then
+    gather C.  K is never split, so the gathered C is bit-identical to the
+    single-device launch of the same backend.
+    """
+    from repro_torch.core.fabric import sharded_launch
+
+    rng = np.random.default_rng(size)
+    a = rng.normal(size=(size, size)).astype(np.float32)
+    b = rng.normal(size=(size, size)).astype(np.float32)
+    sharded_launch(
+        fab, op, backend,
+        inputs={"a": a, "b": b},
+        output=("c", (size, size), np.float32),
+        specs=FABRIC_OP_SPECS["systolic_matmul"],
+        burst_list=lambda dev, shapes: mm_ops.transactions(
+            shapes["c"][0], size, size,
+            bm=min(tile, shapes["c"][0]), bn=tile, bk=tile, dtype_bytes=4))
 
 
 def matmul_backends(tile: int = 32, device="cuda", jit: bool = True) -> dict:

@@ -497,7 +497,7 @@ def make_decode_fn(cfg: ModelConfig, flags: RunFlags, ctx: Any = None):
         if cfg.family == "dense":
             kc, vc = cache["k"], cache["v"]                   # (L,B,S,KH,hd)
             kv_pos = cache["kv_pos"]
-            kv_pos[barange, pos_l] = pos
+            _set_rows(kv_pos, barange, pos_l, pos)
             for li, wl in enumerate(_unstack(bl, cfg.n_layers)):
                 x = _decode_attn_layer(cfg, wl, x, qpos, kc[li], vc[li],
                                        kv_pos, pos_l, barange)
@@ -568,6 +568,18 @@ def make_decode_fn(cfg: ModelConfig, flags: RunFlags, ctx: Any = None):
     return decode
 
 
+def _set_rows(buf, barange, pos, val):
+    """``buf[b, pos[b]] = val[b]`` for every row whose position lies inside
+    ``buf``'s second dim; a row past the end is left as it is, as the
+    reference's scatter drops out-of-bounds updates (an idle serving slot
+    keeps counting past ``max_len``).  No host synchronisation: the row's
+    last entry is rewritten with its own value."""
+    inside = pos < buf.shape[1]
+    idx = pos.clamp(max=buf.shape[1] - 1)
+    mask = inside.view(-1, *([1] * (val.dim() - 1)))
+    buf[barange, idx] = torch.where(mask, val, buf[barange, idx])
+
+
 def _decode_attn_layer(cfg, wl, x, qpos, kc_l, vc_l, kv_pos, pos, barange):
     """Project k/v for this token, write them into this layer's cache
     slice ``kc_l``/``vc_l`` (views into the serving cache), and attend."""
@@ -576,7 +588,7 @@ def _decode_attn_layer(cfg, wl, x, qpos, kc_l, vc_l, kv_pos, pos, barange):
     k1 = (h @ wl["attn"]["wk"]).reshape(B, 1, cfg.n_kv_heads, cfg.head_dim)
     v1 = (h @ wl["attn"]["wv"]).reshape(B, 1, cfg.n_kv_heads, cfg.head_dim)
     k1 = layers.apply_rope(k1, qpos, cfg.rope)
-    kc_l[barange, pos] = k1[:, 0].to(kc_l.dtype)
-    vc_l[barange, pos] = v1[:, 0].to(vc_l.dtype)
+    _set_rows(kc_l, barange, pos, k1[:, 0].to(kc_l.dtype))
+    _set_rows(vc_l, barange, pos, v1[:, 0].to(vc_l.dtype))
     return attn_block_decode(cfg, wl["attn"], wl["ln1"], x, qpos, kc_l, vc_l,
                              kv_pos)

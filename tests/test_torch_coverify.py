@@ -238,13 +238,49 @@ def test_bridge_state_handover_mid_program():
     assert type(port.log.txs[0]).__module__.startswith("repro_torch")
 
 
-def test_bridge_state_refuses_fault_plan_snapshot():
-    ref = _golden_program(ref_core, ref_mm,
-                          ref_mm.matmul_backends(tile=16, jit=False))
+def test_bridge_state_handover_carries_fault_plan():
+    """A snapshot taken under a fault plan: the plan's bit-generator state
+    and its events come across, so the port injects the reference's
+    remaining fault stream — the same audit lines, fault events, digests
+    and clocks after both continue."""
+    def build(core, table):
+        fb = core.FireBridge(congestion=core.CongestionConfig(**CONG),
+                             fault_plan=core.FaultPlan(seed=13))
+        fb.register_op("mm", **table)
+        fb.csr.define("CTRL", 0x0)
+        return fb
+
+    ref = build(ref_core, ref_mm.matmul_backends(tile=16, jit=False))
+    ref_mm.matmul_firmware(ref, "mm", "oracle", size=32, tile=16)
+    _step(ref, 1)
+    ref.mem.dev_read("a")                      # a read the plan may flip
     snap = ref.get_state()
-    snap["mem"]["fault_plan"] = {"rng": "anything"}
-    with pytest.raises(ValueError, match="fault plan"):
-        bridge_state_from_reference(snap)
+    assert snap["mem"]["fault_plan"]["events"]
+
+    port = build(port_core, port_mm.matmul_backends(tile=16, device="cpu"))
+    port.set_state(bridge_state_from_reference(snap))
+    plan = port.mem.fault_plan
+    assert plan.rng.bit_generator.state == \
+        ref.mem.fault_plan.rng.bit_generator.state
+    assert [e.key() for e in plan.events] == \
+        [e.key() for e in ref.mem.fault_plan.events]
+    assert type(plan.events[0]).__module__.startswith("repro_torch")
+    assert port.log.digest() == ref.log.digest()
+
+    for i in (2, 3, 4):
+        for fb in (ref, port):
+            _step(fb, i)
+            fb.mem.dev_read(f"d{i}")
+    assert port.log.digest() == ref.log.digest()
+    assert list(port.log.faults) == list(ref.log.faults)
+    assert [e.key() for e in plan.events] == \
+        [e.key() for e in ref.mem.fault_plan.events]
+    assert len(plan.events) > len(snap["mem"]["fault_plan"]["events"])
+    assert port.mem.time == ref.mem.time and port.csr.time == ref.csr.time
+    assert (port_counters.merged_digest(port.counter_banks())
+            == ref_counters.merged_digest(ref.counter_banks()))
+    # the converted plan shares no state with the reference's
+    assert plan.events is not ref.mem.fault_plan.events
 
 
 def test_port_bridge_refusals_match_reference():

@@ -482,3 +482,50 @@ def test_scan_wrappers_differentiate_on_card(card, scan):
         assert torch.isfinite(a).all()
         assert float((a - b).abs().max()) <= 1e-4 * max(
             1.0, float(b.abs().max()))
+
+
+def test_fuzz_bridge_and_registers_on_card_match_cpu(card):
+    """The fuzzer's bridge layer launches B1 on the card (32-64 cubed, tile
+    16); every fault trace, log and digest is value-free, so the card's run
+    equals the CPU's scenario for scenario."""
+    from repro_torch.core import ProtocolFuzzer
+    before = MM.launches
+    got = ProtocolFuzzer(seed=7, layers=("bridge", "registers"),
+                         device=card).run(12)
+    assert MM.launches > before
+    want = ProtocolFuzzer(seed=7, layers=("bridge", "registers"),
+                          device="cpu").run(12)
+    assert got.passed and got.digest == want.digest
+    assert got.summary() == want.summary()
+
+
+@pytest.mark.parametrize("cell", ["matmul", "flash"])
+def test_sharded_launch_on_card_bit_identical_to_one_device(card, cell):
+    """Row-sharded B1 and head-sharded B2 on 1, 2 and 4 modeled devices of
+    the one card: the gathered result bit-identical to the 1-device run,
+    the fabric digest equal to the CPU run's."""
+    from repro_torch.core import CongestionConfig, FabricCluster
+    from repro_torch.kernels.flash_attention.sweep import (
+        flash_backends, flash_fabric_firmware)
+    from repro_torch.kernels.systolic_matmul.sweep import (
+        matmul_backends, matmul_fabric_firmware)
+    if cell == "matmul":
+        fw, cfg, out = matmul_fabric_firmware, dict(size=256, tile=32), "c"
+        table = lambda dev: matmul_backends(tile=32, device=dev)  # noqa: E731
+    else:
+        fw, cfg, out = flash_fabric_firmware, dict(heads=8, seq=256,
+                                                   dim=64), "o"
+        table = lambda dev: flash_backends(device=dev)            # noqa: E731
+
+    def run(n, dev):
+        fab = FabricCluster(n, congestion=CongestionConfig(dos_prob=0.05,
+                                                           seed=7))
+        fab.register_op("op", **table(dev))
+        fw(fab, "op", "interpret", **cfg)
+        return fab
+
+    one = run(1, card).outputs()[out]
+    for n in (1, 2, 4):
+        fab = run(n, card)
+        assert np.array_equal(fab.outputs()[out], one), n
+        assert fab.digest() == run(n, "cpu").digest()

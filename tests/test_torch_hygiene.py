@@ -52,7 +52,9 @@ def test_port_files_exist():
                  "kernels/mamba2_scan/ops.py", "kernels/mamba2_scan/ref.py",
                  "models/rwkv6.py", "models/mamba2.py", "serving/engine.py",
                  "serving/kvpool.py", "serving/slo.py",
-                 "serving/arrivals.py"):
+                 "serving/arrivals.py", "core/coverage.py", "core/fuzz.py",
+                 "core/topology.py", "core/switch.py", "core/fabric.py",
+                 "sharding/specs.py", "goldens.py"):
         assert want in names
     for src in ("systolic_matmul", "flash_fwd", "flash_bwd", "ssd_scan",
                 "wkv_scan"):

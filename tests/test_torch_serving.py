@@ -295,3 +295,32 @@ def test_engine_refusals():
     eng.csr.fb_write_32(0x10, 10_000)                    # absurd SUBMIT_LEN
     eng.csr.fb_write_32(0x08, 1)
     assert any("SUBMIT_LEN" in v for v in eng.csr.log.violations)
+
+
+def test_dense_decode_past_max_len_drops_like_reference():
+    """A slot whose position has run past ``max_len`` (an idle serving slot
+    keeps counting): the reference's scatter drops that row's k / v /
+    ``kv_pos`` writes, so the port leaves them as they are too; the rows
+    still inside the cache decode as the reference's."""
+    rcfg, cfg, rp, tp = _models("llama3.2-1b")
+    toks = _tokens(cfg, seed=2)
+    rflags, tflags = ref_tf.RunFlags(**FLAGS), tf.RunFlags(**FLAGS)
+    _, rcache = jax.jit(ref_tf.make_prefill_fn(rcfg, rflags, None, S))(
+        rp, {"tokens": jnp.asarray(toks)})
+    # row 0 one step from the end, row 1 already at max_len
+    rcache = dict(rcache, pos=jnp.asarray([S - 1, S], jnp.int32))
+    cache = cache_from_reference(jax.tree.map(np.asarray, rcache),
+                                 device="cpu")
+    before = {p: v.clone() for p, v in paths(cache)}
+    ref_decode = jax.jit(ref_tf.make_decode_fn(rcfg, rflags, None))
+    decode = tf.make_decode_fn(cfg, tflags)
+    for t in range(2):                       # then both rows are past it
+        rlg, rcache = ref_decode(rp, rcache, jnp.asarray(toks[:, t]))
+        lg, cache = decode(tp, cache, torch.from_numpy(toks[:, t]))
+        if t == 0:
+            assert _rel(lg[:1], np.asarray(rlg)[:1]) < 1e-4
+    want = dict(paths(jax.tree.map(np.asarray, rcache)))
+    for p, v in paths(cache):
+        assert _rel(v, want[p]) < 1e-4, p
+    assert torch.equal(cache["k"][:, 1], before["k"][:, 1])
+    assert list(cache["pos"]) == [S + 1, S + 2]
