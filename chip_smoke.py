@@ -26,6 +26,22 @@ card, and drives the port's paths:
     one card: three backends EQUIVALENT, bit-identical to 1 device, a
     ring-routed rerun with the same result and another timing, a
     same-seed rerun with the same digest;
+  * sweep — ``CoVerifySession`` with four worker threads on the one card:
+    the fabric cells at 1, 2 and 4 modeled devices and a 4-device ring,
+    three backends, a fault plan (24 cells; EQUIVALENT, the same modeled
+    rows at 4 workers and at 1, 2/4-device results bit-identical to 1
+    device), the Fig. 5 batched lane against sequential ``coverify()``
+    calls, the matmul cells again with the data-movement profiler on
+    (attribution closing exactly, every Perfetto file valid), and a
+    planted bug localized by replay bisection to its launch;
+  * replay — the 4096 matmul recorded and replayed from checkpoints to
+    its own digests and final state, the replay benchmark's 200-launch
+    workload on B1 (window replay against a full re-run, the late-bug
+    shrink with and without prefix replay), and a full-width llama3.2-1b
+    serving storm recorded and replayed;
+  * profile — the golden programs' Perfetto files on the card equal to
+    the CPU's byte for byte, the 4-device matmul cell's fabric profile
+    per port and per ring leg, and the storm's serving profile;
   * training — llama3.2-1b at full width (16 layers, seq 2048, batch 2,
     bf16 compute, ``attn_impl="pallas"``): one loss + backward with the
     kernels against the naive attention, then three ``Trainer`` steps with
@@ -46,8 +62,11 @@ Every line of standard output is one JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure (no CUDA device, a build or
 launch error, a tolerance miss, a non-EQUIVALENT report, a golden mismatch,
 a failed fuzz scenario, an open protocol bin, a digest that does not repeat,
-a non-finite loss, a wrong launch count, a ``torch.compile`` recompile limit
-hit) ends the run with a non-zero exit code and no last line.
+a sweep that fails or whose rows depend on its worker count, an
+attribution that does not close, a replay that does not repeat its
+recording, a non-finite loss, a wrong launch count, a ``torch.compile``
+recompile limit hit) ends the run with a non-zero exit code and no last
+line.
 """
 from __future__ import annotations
 
@@ -75,10 +94,14 @@ from repro_torch import goldens
 from repro_torch._device import true_fp32
 from repro_torch._tree import leaves, tree_map
 from repro_torch.configs import get_config, smoke
-from repro_torch.core import (FABRIC_LINK, CongestionConfig, FabricCluster,
+from repro_torch.core import (FABRIC_LINK, CATEGORIES, CongestionConfig,
+                              CoVerifySession, DataMovementProfiler,
+                              FabricCluster, FaultPlan, FireBridge,
                               FuzzReport, ProtocolFuzzer, compare_outputs,
-                              coverify)
-from repro_torch.core.fuzz import _default_engine, planted_bug_table
+                              coverify, validate_trace)
+from repro_torch.core import replay as replay_mod
+from repro_torch.core.fuzz import (Scenario, _default_engine,
+                                   planted_bug_table)
 from repro_torch.data.synthetic import SyntheticLMDataset
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import kernel as FAK
@@ -261,8 +284,9 @@ def phase_build() -> None:
 # the largest Fig. 5 case, the full-size main-path shape, a shape ragged for
 # the fp32 body (K no multiple of 8, M and N no multiple of its C tile), and
 # a longer K, where the tensor core's accumulation error shows most; then
-# the fuzzer's bridge-layer launches (32, 48, 64 cubed at tile 16) and one
-# device's row shard of the 4-device matmul fabric cell.
+# the fuzzer's bridge-layer launches (32, 48, 64 cubed at tile 16), one
+# device's row shard of the 4-device and of the 2-device matmul fabric
+# cells, and the Fig. 5 batched lane's cells (64-160 cubed at tile 32).
 MM_SHAPES = [
     (256, 128, 128, 64, torch.float32),
     (128, 256, 512, 64, torch.bfloat16),
@@ -276,10 +300,17 @@ MM_SHAPES = [
     (48, 48, 48, 16, torch.float32),
     (64, 64, 64, 16, torch.float32),
     (1024, 4096, 4096, 128, torch.float32),
+    (2048, 4096, 4096, 128, torch.float32),
+    (64, 64, 64, 32, torch.float32),
+    (96, 96, 96, 32, torch.float32),
+    (128, 128, 128, 32, torch.float32),
+    (160, 160, 160, 32, torch.float32),
 ]
 MM_MAIN = 4          # index of the shape coverify_matmul runs
 MM_FUZZ = (8, 9, 10)  # the fuzzer's bridge-layer launches
 MM_SHARD = 11        # one device's launch of the 4-device matmul fabric cell
+MM_SHARD2 = 12       # one device's launch of the 2-device sweep cell
+MM_FIG5_SWEEP = (13, 14, 15, 16)   # the Fig. 5 batched lane's cells
 # the fp32 body keeps 3xTF32 only while every fp32 row is within half its
 # gate (the rule that chose hi + lo for the attention backward)
 SPLIT_RULE = 0.5
@@ -290,7 +321,7 @@ SPLIT_RULE = 0.5
 # the kernel (the models call it with bq=bk=512), zamba2's, then the bf16
 # tensor-core body at head dims 16 and 32 and at a length that is no
 # multiple of its 128-row tiles; last, one device's launch of the
-# 4-device head-sharded attention fabric cell.
+# 4-device and of the 2-device head-sharded attention fabric cells.
 FA_SHAPES = [
     (2, 4, 2, 128, 16, True, 0, torch.float32, 32),
     (1, 4, 4, 64, 32, False, 0, torch.float32, 32),
@@ -307,11 +338,13 @@ FA_SHAPES = [
     (1, 4, 4, 64, 32, False, 0, torch.bfloat16, 32),
     (1, 8, 2, 200, 64, True, 0, torch.bfloat16, 40),
     (1, 8, 8, 2048, 64, True, 0, torch.float32, 128),
+    (1, 16, 16, 2048, 64, True, 0, torch.float32, 128),
 ]
 FA_MAIN = 8
 FA_TRAIN = 9
 FA_ZAMBA = 10        # zamba2-2.7b's shared attention: head dim 80, window
 FA_SHARD = 14        # one device's launch of the 4-device fabric cell
+FA_SHARD2 = 15       # one device's launch of the 2-device sweep cell
 
 # Backward: the reference's gradient rows (SWEEP[:3] of
 # tests/test_kernels_flash.py), a GQA row with G=4 (a missing head sum shows
@@ -1245,6 +1278,529 @@ def phase_fabric(card: str) -> dict:
     return launches
 
 
+# --------------------------------------------------------- phases 6d, 6e, 6f
+SWEEP_CELLS = {"mm": dict(size=4096, tile=128),
+               "fa": dict(batch=1, heads=32, seq=2048, dim=64, bq=128,
+                          bk=128)}
+SWEEP_BACKENDS = ("oracle", "interpret", "compiled")
+SWEEP_DEVICES = (1, 2, 4)
+SWEEP_WORKERS = 4
+FIG5_SWEEP_SIZES = (64, 96, 128, 160)
+REPLAY_OPS, REPLAY_INSPECT, REPLAY_EVERY = 200, 150, 8
+SHRINK_OPS = 24
+TRACE_DIR = ROOT / "build" / "sweep_traces"
+# the profiled matmul cells' Perfetto files are written and validated at
+# this size: the export holds a counter sample every 256 modeled cycles
+# (most of a ring cell's events) and a slice a burst, so a ring cell's
+# file grows with the modeled horizon, 4x a doubling of the size from 512
+# to 1024 (66 -> 270 MB), and at 4096 would be GBs; 1024 is the largest
+# size whose 12 files are written and read back in under two minutes
+TRACE_CELLS = {"mm": dict(size=1024, tile=128)}
+
+
+def sweep_firmware(fb, op, backend, **cfg):
+    (matmul_firmware if op == "mm" else flash_firmware)(fb, op, backend,
+                                                        **cfg)
+
+
+def sweep_fabric_firmware(fab, op, backend, **cfg):
+    (matmul_fabric_firmware if op == "mm" else flash_fabric_firmware)(
+        fab, op, backend, **cfg)
+
+
+def sweep_session(tables: dict, ops=("mm", "fa"), profile: bool = False,
+                  cells: dict = SWEEP_CELLS) -> CoVerifySession:
+    """``examples/cluster_coverify.py``'s devices sweep at the ``fabric``
+    phase's sizes: each op on the three backends at 1, 2 and 4 devices on
+    the crossbar (``add_sweep``), plus a 4-device ring cell a backend, all
+    under ``FaultPlan(0)``."""
+    sess = CoVerifySession(sweep_firmware,
+                           fabric_firmware=sweep_fabric_firmware,
+                           congestion=CongestionConfig(**CONG),
+                           link_config=FABRIC_DOS, fault_plan=FaultPlan(0),
+                           profile=profile)
+    for op in ops:
+        sess.register_op(op, **tables[op])
+        sess.add_sweep(op, SWEEP_BACKENDS, [cells[op]],
+                       devices=SWEEP_DEVICES)
+        for be in SWEEP_BACKENDS:
+            sess.add_cell(op, be, cells[op], devices=4, topology="ring")
+    return sess
+
+
+def build_sweep_tier(tables: dict, cells: dict = SWEEP_CELLS) -> dict:
+    """The ``compiled`` tier of the sweep tables built for every shape a
+    device of a 1-, 2- or 4-device cell gives it, before any timed run (a
+    fresh C-ordered shard each, as a device buffer is)."""
+    out = {}
+    for op, cfg in cells.items():
+        if op == "mm":
+            rng = np.random.default_rng(cfg["size"])
+            a, b = (rng.normal(size=(cfg["size"], cfg["size"]))
+                    .astype(np.float32) for _ in range(2))
+            shard = lambda n: (a[:cfg["size"] // n].copy(), b)  # noqa: E731
+        else:
+            qkv = fa_inputs(cfg["batch"], cfg["heads"], cfg["seq"],
+                            cfg["dim"])
+            shard = lambda n: tuple(x[:, :cfg["heads"] // n].copy()  # noqa
+                                    for x in qkv)
+        for n in SWEEP_DEVICES:
+            t = time.perf_counter()
+            tables[op]["compiled"](*shard(n))
+            out[f"{op}{cfg.get('size', '')}@{n}dev"] = \
+                time.perf_counter() - t
+    return out
+
+
+def without_profile_columns(rows):
+    """``to_rows`` lines without the utilization column (index 7) and the
+    stall-category columns after it."""
+    def cut(parts):
+        return parts[:7] + parts[8 + len(CATEGORIES):]
+    return [",".join(cut(r.split(","))) for r in rows]
+
+
+def closes(prof) -> bool:
+    """Every channel's categories, folded left in taxonomy order (the sum
+    the profiler closes; Python's ``sum`` of floats is compensated), add
+    up bit-exactly to its horizon."""
+    def fold(cycles):
+        s = 0.0
+        for c in CATEGORIES:
+            s += cycles[c]
+        return s
+    return all(fold(ch.breakdown.cycles) == ch.horizon
+               for ch in prof.channels)
+
+
+def phase_sweep(card: str) -> dict:
+    """``CoVerifySession`` on the card: (a) the 24-cell full-size devices
+    sweep at 4 workers with ``profile=True``, then at 1 without (both pass;
+    the rows, the profile columns left out, byte-identical; 2/4-device
+    ``interpret`` bit-identical to 1 device; no counter mismatch; every
+    profiled cell's attribution closes); (b) the Fig. 5 batched lane
+    against the sequential ``coverify()`` lane; (c) (a)'s matmul cells at
+    ``TRACE_CELLS``' size, every ``save_traces`` file valid; (d) the
+    planted bug at 4096 localized to a ``launch`` op.  Returns each
+    kernel's launches in the phase."""
+    t_phase = time.perf_counter()
+    graphs0 = compiled_graphs()
+    tables = {"mm": matmul_backends(tile=SWEEP_CELLS["mm"]["tile"],
+                                    device="cuda"),
+              "fa": flash_backends(bq=SWEEP_CELLS["fa"]["bq"],
+                                   bk=SWEEP_CELLS["fa"]["bk"], causal=True,
+                                   device="cuda")}
+    tier_s = build_sweep_tier(tables)
+    MMK.launches = 0
+    FAK.launches = 0
+    out = {"phase": "sweep", "card": card, "compiled_build_s": tier_s}
+
+    # (a) the devices sweep, 4 workers profiled, then 1 unprofiled: one
+    # comparison of rows holds both the worker count and the profiler to
+    # the same modeled quantities
+    runs = {}
+    for workers in (SWEEP_WORKERS, 1):
+        sess = sweep_session(tables, profile=workers > 1)
+        mm0, fa0 = MMK.launches, FAK.launches
+        t = time.perf_counter()
+        rep = sess.run(max_workers=workers)
+        runs[workers] = {"report": rep, "wall_s": time.perf_counter() - t,
+                         "b1_launches": MMK.launches - mm0,
+                         "b2_launches": FAK.launches - fa0}
+    rep4, rep1 = runs[SWEEP_WORKERS]["report"], runs[1]["report"]
+    bit_identical = {}
+    for op, oname in (("mm", "c"), ("fa", "o")):
+        by = {r.cell.group_member: r.outputs[oname] for r in rep4.cells
+              if r.cell.op == op}
+        for member, arr in by.items():
+            if member.startswith("interpret@"):
+                bit_identical[f"{op}/{member}"] = bool(
+                    np.array_equal(arr, by["interpret"]))
+    rows = rep4.to_rows(wall=False)
+    checks = {"passed_4_workers": rep4.passed, "passed_1_worker": rep1.passed,
+              "rows_identical": without_profile_columns(rows)
+              == without_profile_columns(rep1.to_rows(wall=False)),
+              "bit_identical_to_1dev": all(bit_identical.values()),
+              "no_counter_mismatch": not (rep4.counter_mismatches
+                                          or rep1.counter_mismatches),
+              "closes": all(closes(r.profile) for r in rep4.cells)}
+    out["devices_sweep"] = {
+        "cells": len(rep4.cells), "workers": SWEEP_WORKERS,
+        "profiled": f"{SWEEP_WORKERS} workers", **checks,
+        "channels": sum(len(r.profile.channels) for r in rep4.cells),
+        "bit_identical": bit_identical,
+        "equivalence": {g: str(e) for g, e in rep4.equivalence.items()},
+        "rows_4_workers": rep4.to_rows(), "scaling_1_worker": rep1.scaling(),
+        **{f"wall_s_{w}_worker{'s' if w > 1 else ''}": r["wall_s"]
+           for w, r in runs.items()},
+        **{f"{k}_{w}": r[k] for w, r in runs.items()
+           for k in ("b1_launches", "b2_launches")},
+        "summary": {k: v for k, v in rep4.summary().items()
+                    if k != "divergences"}}
+    if not all(checks.values()):
+        emit(out)
+        fail(f"sweep (a): {checks} {bit_identical} "
+             f"{rep4.summary()['failures']} {rep1.summary()['failures']}")
+    del rep4, rep1, runs
+    gc.collect()
+
+    # (b) the Fig. 5 batched lane (bench_debug_iteration.sweep_comparison)
+    cong = CongestionConfig(dos_prob=0.02, seed=11)
+
+    def sequential():
+        t0, ok = time.perf_counter(), True
+        for size in FIG5_SWEEP_SIZES:
+            res = coverify(
+                lambda fb, be, size=size: matmul_firmware(fb, "mm", be,
+                                                          size=size),
+                {"mm": matmul_backends(tile=32, device="cuda")},
+                backends=SWEEP_BACKENDS, tol=1e-3, congestion=cong)
+            ok &= res.passed
+        return time.perf_counter() - t0, ok
+
+    fig5 = CoVerifySession(matmul_firmware, congestion=cong)
+    fig5.register_op("mm", **matmul_backends(tile=32, device="cuda"))
+    fig5.add_sweep("mm", SWEEP_BACKENDS,
+                   [{"size": s} for s in FIG5_SWEEP_SIZES])
+
+    def batched():
+        t0 = time.perf_counter()
+        rep = fig5.run(max_workers=SWEEP_WORKERS)
+        return time.perf_counter() - t0, rep.passed
+
+    sequential()                          # warm: every shape compiled
+    seq_s, seq_ok = sequential()
+    batched()
+    bat_s, bat_ok = batched()
+    out["fig5_batched_lane"] = {
+        "cells": len(fig5.cells), "sizes": list(FIG5_SWEEP_SIZES),
+        "tile": 32, "workers": SWEEP_WORKERS, "sequential_s": seq_s,
+        "batched_s": bat_s, "sequential_over_batched": seq_s / bat_s,
+        "passed": seq_ok and bat_ok}
+    if not (seq_ok and bat_ok):
+        emit(out)
+        fail("sweep (b): the Fig. 5 lanes did not pass")
+
+    # (c) (a)'s matmul cells at TRACE_CELLS' size: every save_traces file
+    build_sweep_tier(tables, TRACE_CELLS)
+    t = time.perf_counter()
+    rep = sweep_session(tables, ops=("mm",), profile=True,
+                        cells=TRACE_CELLS).run(max_workers=SWEEP_WORKERS)
+    run_s = time.perf_counter() - t
+    shutil.rmtree(TRACE_DIR, ignore_errors=True)
+    t = time.perf_counter()
+    paths = rep.save_traces(TRACE_DIR)
+    save_s = time.perf_counter() - t
+    t = time.perf_counter()
+    invalid = {p.name: validate_trace(json.loads(p.read_text()))[:3]
+               for p in paths}
+    invalid = {k: v for k, v in invalid.items() if v}
+    validate_s = time.perf_counter() - t
+    trace_bytes = {p.name: p.stat().st_size for p in paths}
+    shutil.rmtree(TRACE_DIR, ignore_errors=True)
+    checks = {"passed": rep.passed,
+              "closes": all(closes(r.profile) for r in rep.cells),
+              "traces_valid": not invalid and len(paths) == len(rep.cells)}
+    out["profiled_matmul_traces"] = {
+        "cells": len(rep.cells), "trace_cells": TRACE_CELLS, **checks,
+        "run_s": run_s, "invalid": invalid, "save_traces_s": save_s,
+        "validate_s": validate_s, "trace_bytes": trace_bytes}
+    if not all(checks.values()):
+        emit(out)
+        fail(f"sweep (c): {checks}")
+    del rep
+    gc.collect()
+
+    # (d) the planted bug at full size
+    bug = CoVerifySession(matmul_firmware, congestion=CongestionConfig(**CONG))
+    bug.register_op("mm", **planted_bug_table(
+        tile=SWEEP_CELLS["mm"]["tile"], device="cuda"))
+    bug.add_sweep("mm", ("oracle", "interpret"), [SWEEP_CELLS["mm"]])
+    t = time.perf_counter()
+    rep = bug.run(max_workers=SWEEP_WORKERS)
+    bug_s = time.perf_counter() - t
+    divs = list(rep.divergences.values())
+    d = divs[0] if len(divs) == 1 else None
+    named = isinstance(d, replay_mod.DivergenceReport) and \
+        d.event.startswith("launch")
+    out["planted_bug"] = {
+        "passed": rep.passed, "wall_s": bug_s,
+        "divergences": rep.summary()["divergences"],
+        "op_index": getattr(d, "op_index", None),
+        "kind": getattr(d, "kind", None),
+        "replays": getattr(d, "n_replays", None)}
+    launches = {"systolic_matmul": MMK.launches, "flash_fwd": FAK.launches}
+    out["launches"] = launches
+    out["compiled_graphs"] = compiled_graphs() - graphs0
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    if rep.passed or not named:
+        fail(f"sweep (d): planted bug not localized to a launch op: "
+             f"{out['planted_bug']}")
+    if min(launches.values()) < 1:
+        fail(f"sweep: a kernel was never launched: {launches}")
+    del rep, bug, fig5, sess, tables
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def combined_digest(target) -> str:
+    h = hashlib.sha256()
+    for log in replay_mod.target_logs(target):
+        h.update(log.digest().encode())
+    return h.hexdigest()
+
+
+def late_bug_table() -> dict:
+    """B1's table (tile 16) whose interpret lane diverges only for 64-row
+    launches (``benchmarks/bench_replay.py``)."""
+    table = matmul_backends(tile=ProtocolFuzzer.TILE, device="cuda")
+    good = table["interpret"]
+
+    def buggy(a, b):
+        out = np.array(good(a, b))
+        if a.shape[0] == 64:
+            out[1, 2] += 1.0
+        return out
+    return dict(table, interpret=buggy)
+
+
+def late_bug_scenario(table: dict):
+    """A fuzzer and a scenario of ``SHRINK_OPS`` launches whose only
+    64-row launch (where the bug fires) is at 3/4 of the list."""
+    fz = ProtocolFuzzer(seed=0, layers=("bridge",),
+                        backends=("oracle", "interpret"), mm_table=table,
+                        bridge_ops=(SHRINK_OPS, SHRINK_OPS + 1),
+                        device="cuda")
+    bug_at = (3 * SHRINK_OPS) // 4
+    sizes = [(32, 48)[j % 2] for j in range(SHRINK_OPS)]
+    sizes[bug_at - 1] = 64
+    return fz, Scenario(0, "bridge", [("launch", s) for s in sizes]), bug_at
+
+
+def storm_requests(vocab: int):
+    """Five requests of 3-11 prompt tokens and 2-5 new ones: within
+    ``_default_engine``'s 32-position slots."""
+    rng = np.random.default_rng(0)
+    return [(rid, rng.integers(1, vocab, int(rng.integers(3, 12))).astype(
+        np.int32), int(rng.integers(2, 6))) for rid in range(5)]
+
+
+def phase_replay(card: str):
+    """Time-travel replay on the card: the 4096 matmul recorded through
+    ``RecordingBridge`` (full-range and window replays repeat its digests
+    and final state); ``benchmarks/bench_replay.py``'s workload on B1
+    (state at launch 150 by window replay against a full re-run; the
+    late-bug shrink with and without prefix replay); a full-width
+    llama3.2-1b serving storm recorded and replayed.  Returns B1's
+    launches in the phase and the storm's engine."""
+    t_phase = time.perf_counter()
+    MMK.launches = 0
+    out = {"phase": "replay", "card": card}
+
+    # the full-size recording
+    mm = SWEEP_CELLS["mm"]
+    table = matmul_backends(tile=mm["tile"], device="cuda", jit=False)
+
+    def factory():
+        fb = FireBridge(congestion=CongestionConfig(**CONG))
+        fb.register_op("mm", **table)
+        return fb
+    sess = replay_mod.DebugSession(factory, checkpoint_interval=2,
+                                   label="matmul")
+    t = time.perf_counter()
+    rec = sess.record(lambda r: matmul_firmware(
+        replay_mod.RecordingBridge(r), "mm", "interpret", **mm))
+    record_s = time.perf_counter() - t
+    n = rec.n_ops
+    t = time.perf_counter()
+    full = sess.replay(rec, 0, n)
+    full_s = time.perf_counter() - t
+    windows = {}
+    for lo, hi in ((1, 4), (3, n), (n - 1, n)):
+        w = sess.replay(rec, lo, hi)
+        windows[f"{lo}-{hi}"] = (w.lines == rec.window_lines(lo, hi)
+                                 and w.digest() == rec.window_digest(lo, hi))
+    last = sess.replay(rec, n - 1, n).target
+    checks = {"full_range_digest": combined_digest(full.target)
+              == rec.log_digest,
+              "full_range_lines": full.lines == rec.window_lines(0, n),
+              "windows_identical": all(windows.values()),
+              "final_fingerprint": replay_mod.state_fingerprint(
+                  full.target.get_state()) == rec.final_fingerprint,
+              "window_final_fingerprint": replay_mod.state_fingerprint(
+                  last.get_state()) == rec.final_fingerprint}
+    out["matmul_recording"] = {**mm, "ops": n, "checkpoints": [c.op_index for c in
+                                                   rec.checkpoints],
+                         "record_s": record_s, "full_replay_s": full_s,
+                         "windows": windows, **checks,
+                         "log_digest": rec.log_digest[:16]}
+    del sess, rec, full, last
+    if not all(checks.values()):
+        emit(out)
+        fail(f"replay (matmul recording): {checks}")
+
+    # bench_replay's debug iteration: state at launch 150 of 200 on B1
+    fz = ProtocolFuzzer(seed=0, layers=("bridge",), backends=("interpret",),
+                        bridge_ops=(REPLAY_OPS, REPLAY_OPS + 1),
+                        device="cuda")
+    scn = fz.scenario(0)
+    per_op = ProtocolFuzzer._BRIDGE_EVENTS_PER_OP
+    t = time.perf_counter()
+    sess, rec = fz._record_bridge_scenario(scn, "interpret", REPLAY_EVERY)
+    sess0, rec0 = fz._record_bridge_scenario(scn, "interpret",
+                                             REPLAY_OPS + 1)
+    record_s = time.perf_counter() - t
+    k = REPLAY_INSPECT * per_op
+    sess0.ops_applied = sess.ops_applied = 0
+    t = time.perf_counter()
+    a = sess0.replay(rec0, k, k).target
+    full_s = time.perf_counter() - t
+    t = time.perf_counter()
+    b = sess.replay(rec, k, k).target
+    win_s = time.perf_counter() - t
+    same = replay_mod.state_fingerprint(a.get_state()) == \
+        replay_mod.state_fingerprint(b.get_state())
+    out["debug_iteration"] = {
+        "launches": len(scn.ops), "inspect_at": REPLAY_INSPECT,
+        "checkpoint_every": REPLAY_EVERY, "record_two_s": record_s,
+        "full_rerun_events": sess0.ops_applied, "full_rerun_s": full_s,
+        "window_replay_events": sess.ops_applied, "window_replay_s": win_s,
+        "speedup": full_s / win_s, "same_state": same}
+    del sess, rec, sess0, rec0, a, b
+
+    # bench_replay's shrink: a late-firing bug, with and without replay
+    table = late_bug_table()
+    for size in ProtocolFuzzer.SIZES:     # compiled outside the timed lanes
+        x = np.zeros((size, size), np.float32)
+        table["interpret"](x, x)
+        table["compiled"](x, x)
+    shrink = {}
+    for lane, use_replay in (("linear", False), ("prefix_replay", True)):
+        fzs, scn, bug_at = late_bug_scenario(table)
+        t = time.perf_counter()
+        sub, res = fzs.shrink(scn, use_replay=use_replay)
+        dt = time.perf_counter() - t
+        ops = (sum(n for n, _ in fzs.shrink_counts.values()) if use_replay
+               else bug_at * (bug_at + 1) // 2 * per_op * 2)
+        shrink[lane] = {"s": dt, "ops_applied": ops,
+                        "prefix": len(sub.ops), "fails": not res.ok,
+                        "digest": res.digest[:16]}
+    shrink["bug_at"] = bug_at
+    shrink["speedup"] = shrink["linear"]["s"] / shrink["prefix_replay"]["s"]
+    out["shrink"] = shrink
+    same_prefix = (shrink["linear"]["prefix"]
+                   == shrink["prefix_replay"]["prefix"] == bug_at
+                   and shrink["linear"]["digest"]
+                   == shrink["prefix_replay"]["digest"]
+                   and shrink["linear"]["fails"]
+                   and shrink["prefix_replay"]["fails"])
+
+    # a full-width serving storm, recorded and replayed
+    t = time.perf_counter()
+    eng = _default_engine(device="cuda", cfg=get_config("llama3.2-1b"))
+
+    def storm_factory():
+        eng.reset()
+        return eng
+    sess = replay_mod.DebugSession(storm_factory, checkpoint_interval=4,
+                                   label="storm")
+    rec = replay_mod.record_serving_storm(sess,
+                                          storm_requests(eng.cfg.vocab_size))
+    storm_record_s = time.perf_counter() - t
+    tokens = {rid: list(r.out_tokens) for rid, r in rec.target.requests.items()}
+    final = rec.final_fingerprint
+    t = time.perf_counter()
+    w = sess.replay(rec, 0, rec.n_ops)
+    storm_replay_s = time.perf_counter() - t
+    storm = {"ops": rec.n_ops, "checkpoints": len(rec.checkpoints),
+             "record_s": storm_record_s, "replay_s": storm_replay_s,
+             "tokens_out": sum(len(v) for v in tokens.values()),
+             "lines": w.lines == rec.window_lines(0, rec.n_ops),
+             "log_digest": combined_digest(w.target) == rec.log_digest,
+             "final_fingerprint": replay_mod.state_fingerprint(
+                 w.target.get_state()) == final,
+             "tokens": {rid: list(r.out_tokens) for rid, r in
+                        w.target.requests.items()} == tokens,
+             "cache_on": str(next(iter(leaves(eng.cache))).device)}
+    out["serving_storm"] = storm
+    launches = MMK.launches
+    out["b1_launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    if not (same and same_prefix):
+        fail(f"replay: debug iteration same_state={same}, shrink {shrink}")
+    if not all(storm[k] for k in ("lines", "log_digest",
+                                  "final_fingerprint", "tokens")):
+        fail(f"replay (serving storm): {storm}")
+    if launches < 1:
+        fail("replay: B1 was never launched")
+    return launches, eng
+
+
+def perfetto_bytes(prof) -> bytes:
+    """``save_perfetto``'s bytes, without the file."""
+    return (json.dumps(prof.to_perfetto(), sort_keys=True,
+                       separators=(",", ":")) + "\n").encode()
+
+
+def phase_profile(card: str, eng) -> int:
+    """The data-movement profiler on the card: the golden programs'
+    Perfetto bytes equal to the same programs run with ``device="cpu"``;
+    the 4-device matmul cell's fabric profile (per port, per ring leg);
+    the full-width storm's serving profile.  Returns B1's launches."""
+    t_phase = time.perf_counter()
+    MMK.launches = 0
+    out = {"phase": "profile", "card": card, "goldens": {}}
+    equal = {}
+    for name, program in goldens.PROGRAMS.items():
+        card_b = perfetto_bytes(DataMovementProfiler(program("cuda"),
+                                                     label=name))
+        cpu_b = perfetto_bytes(DataMovementProfiler(program("cpu"),
+                                                    label=name))
+        equal[name] = card_b == cpu_b
+        out["goldens"][name] = {"sha256": hashlib.sha256(card_b).hexdigest(),
+                                "bytes": len(card_b),
+                                "equal_to_cpu": equal[name]}
+
+    fab = FabricCluster(4, congestion=CongestionConfig(**CONG),
+                        link_config=FABRIC_DOS, profile=True)
+    mm = SWEEP_CELLS["mm"]
+    fab.register_op("mm", **matmul_backends(tile=mm["tile"], device="cuda",
+                                            jit=False))
+    t = time.perf_counter()
+    matmul_fabric_firmware(fab, "mm", "interpret", **mm)
+    run_s = time.perf_counter() - t
+    t = time.perf_counter()
+    prof = fab.profiler("fabric_mm")
+    build_s = time.perf_counter() - t
+    fab_closes = closes(prof)
+    out["fabric"] = {
+        **mm, "devices": 4, "run_s": run_s, "profile_build_s": build_s,
+        "closes": fab_closes, "channels": len(prof.channels),
+        "port_rows": [r for r in prof.engine_rows()
+                      if r.startswith(("channel,", "fabric/"))],
+        "leg_rows": prof.op_rows(), "summary": prof.summary()}
+    del fab, prof
+
+    sprof = eng.profiler("serving_storm")
+    out["serving"] = {"closes": closes(sprof),
+                      "serving_rows": sprof.serving_rows(),
+                      "summary": sprof.summary()}
+    launches = MMK.launches
+    out["b1_launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    if not all(equal.values()):
+        fail(f"profile: card Perfetto bytes differ from the CPU's: {equal}")
+    if not (fab_closes and out["serving"]["closes"]):
+        fail("profile: an attribution does not close")
+    if launches < 1:
+        fail("profile: B1 was never launched")
+    return launches
+
+
 # ------------------------------------------------------------------ phase 7
 LLAMA = dict(arch="llama3.2-1b", seq_len=2048, global_batch=2, steps=3,
              seed=0)
@@ -1893,6 +2449,13 @@ def main() -> int:
     # past dynamo's recompile limit a frame would quietly run eagerly,
     # hiding the compiled tier: make that an error instead
     torch._dynamo.config.fail_on_recompile_limit_hit = True
+    # every table compiles the one oracle body of its op (matmul or
+    # attention) once a shape; with the sweep's shards and the Fig. 5
+    # lane's sizes the smoke builds more than dynamo's default 8 graphs of
+    # that frame, all of them wanted: raise the limit, keep the error
+    for name in ("recompile_limit", "cache_size_limit"):
+        if hasattr(torch._dynamo.config, name):
+            setattr(torch._dynamo.config, name, 64)
     card = phase_env()
     phase_build()
     mm_rows, fa_rows, dkdv_rows, dq_rows, wkv_rows, ssd_rows = phase_kernels()
@@ -1901,16 +2464,26 @@ def main() -> int:
     phase_golden()
     fuzz_launches = phase_fuzz(card)
     fabric = phase_fabric(card)
+    sweep = phase_sweep(card)
+    replay_launches, storm_engine = phase_replay(card)
+    profile_launches = phase_profile(card, storm_engine)
+    del storm_engine
+    gc.collect()                      # the engine's cycles hold its weights
+    torch.cuda.empty_cache()
     train = phase_train_llama(card)
     ssm = phase_train_ssm(card)
     rwkv = phase_serve(card, "rwkv6-7b")
     zamba = phase_serve(card, "zamba2-2.7b")
     if mm_launches < 1 or fa_launches < 1 or fuzz_launches < 1 or \
-            min(fabric.values()) < 1 or min(train.values()) < 1 or \
+            min(fabric.values()) < 1 or min(sweep.values()) < 1 or \
+            replay_launches < 1 or profile_launches < 1 or \
+            min(train.values()) < 1 or \
             min(ssm.values()) < 1 or min(rwkv.values()) < 1 or \
             min(zamba.values()) < 1:
         fail(f"main path missed a kernel: matmul={mm_launches} "
              f"flash={fa_launches} fuzz={fuzz_launches} fabric={fabric} "
+             f"sweep={sweep} replay={replay_launches} "
+             f"profile={profile_launches} "
              f"train={train} train_ssm={ssm} serve_rwkv6={rwkv} "
              f"serve_zamba2={zamba}")
     src = "src/repro_torch/kernels/csrc/"
@@ -1922,9 +2495,16 @@ def main() -> int:
                      ref + "systolic_matmul/kernel.py:52",
                      mm_rows[MM_MAIN], mm_rows,
                      {"coverify_matmul": mm_launches, "fuzz": fuzz_launches,
-                      "fabric": fabric["systolic_matmul"]},
+                      "fabric": fabric["systolic_matmul"],
+                      "sweep": sweep["systolic_matmul"],
+                      "replay": replay_launches, "profile": profile_launches},
                      {"fuzz": [mm_rows[i] for i in MM_FUZZ],
-                      "fabric": mm_rows[MM_SHARD]}),
+                      "fabric": mm_rows[MM_SHARD],
+                      "sweep": [mm_rows[i] for i in
+                                (MM_MAIN, MM_SHARD2, MM_SHARD,
+                                 *MM_FIG5_SWEEP)],
+                      "replay": [mm_rows[i] for i in (MM_MAIN, *MM_FUZZ)],
+                      "profile": mm_rows[MM_SHARD]}),
         kernel_entry("flash_fwd", [src + "flash_fwd.cu",
                                    src + "flash_fwd_tf32_sm90.cuh",
                                    src + "flash_fwd_sm90.cuh",
@@ -1933,10 +2513,13 @@ def main() -> int:
                      fa_rows[FA_MAIN], fa_rows,
                      {"coverify_flash": fa_launches,
                       "fabric": fabric["flash_fwd"],
+                      "sweep": sweep["flash_fwd"],
                       "train_llama": train["flash_fwd"],
                       "train_ssm": ssm["flash_fwd"],
                       "serve_zamba2": zamba["flash_fwd"]},
-                     {"fabric": fa_rows[FA_SHARD]}),
+                     {"fabric": fa_rows[FA_SHARD],
+                      "sweep": [fa_rows[i] for i in
+                                (FA_MAIN, FA_SHARD2, FA_SHARD)]}),
         kernel_entry("flash_dkdv", [src + "flash_bwd.cu",
                                     src + "flash_dkdv_sm90.cuh",
                                     src + "sm90.cuh"],

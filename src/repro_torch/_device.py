@@ -7,6 +7,7 @@ on the CPU: callers that want the CPU say ``device="cpu"``.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Iterator, Union
 
 import numpy as np
@@ -44,15 +45,33 @@ def on_cpu(name: str, *ts: torch.Tensor) -> bool:
     return False
 
 
+# ``true_fp32`` is entered from several threads at once (the cells of a
+# sweep run on a thread pool): the flag is process-wide, so the first
+# entrant saves it, every entrant clears it, and the last one out restores
+# it, under one lock
+_fp32_lock = threading.Lock()
+_fp32_depth = 0
+_fp32_saved = False
+
+
 @contextlib.contextmanager
 def true_fp32() -> Iterator[None]:
     """Float32 matmuls on the card without TF32 inside the body; the
-    caller's ``torch.backends.cuda.matmul.allow_tf32`` is restored on exit,
-    so a plain version or oracle never changes the process-wide switch.
-    Usable as a decorator."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    caller's ``torch.backends.cuda.matmul.allow_tf32`` is restored when the
+    last context still open in any thread exits, so a plain version or
+    oracle never changes the process-wide switch, and one thread's exit
+    never turns TF32 back on under another thread's body.  Usable as a
+    decorator."""
+    global _fp32_depth, _fp32_saved
+    with _fp32_lock:
+        if _fp32_depth == 0:
+            _fp32_saved = torch.backends.cuda.matmul.allow_tf32
+        _fp32_depth += 1
+        torch.backends.cuda.matmul.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        with _fp32_lock:
+            _fp32_depth -= 1
+            if _fp32_depth == 0:
+                torch.backends.cuda.matmul.allow_tf32 = _fp32_saved

@@ -173,3 +173,54 @@ def train_state_from_reference(state: Dict[str, Any],
     out["step"] = torch.tensor(int(np.asarray(state["step"])),
                                dtype=torch.int32, device=resolve_device(device))
     return out
+
+
+def _burst_list(fn: Any) -> Any:
+    """A recorded launch's burst-list callable as the port's: the tuples
+    the reference's callable returns (engine, kind, address, bytes: the
+    static tile schedule, value-free) behind a callable of the port."""
+    if fn is None:
+        return None
+    txs = tuple(tuple(t) for t in fn())
+    return lambda: [tuple(t) for t in txs]
+
+
+def recording_from_reference(rec: Any) -> Any:
+    """Carry a reference bridge ``Recording`` (``repro.core.replay``) into
+    the port, for replay in a port ``DebugSession`` whose factory builds
+    the same bridge (ops registered, congestion and fault plan from the
+    same seeds).
+
+    Events become the port's ``TimelineEvent``s with the same plain-data
+    arguments (numpy arrays copied; a launch's burst-list callable carried
+    as the tuples it returns, ``_burst_list``); checkpoint states go
+    through ``bridge_state_from_reference``, and their fingerprints are
+    the port's own over the carried state.  The line stream, its marks and
+    the log digest are value-free and carried as they are.  The live target
+    stays behind: a replay rebuilds its own."""
+    from repro_torch.core import replay as rp
+
+    def arg(a: Any) -> Any:
+        return np.array(a, copy=True) if isinstance(a, np.ndarray) else a
+
+    out = rp.Recording(rec.label, rec.interval)
+    for ev in rec.events:
+        args = tuple(arg(a) for a in ev.args)
+        if ev.kind == "launch":
+            args = args[:5] + (_burst_list(args[5]),) + args[6:]
+        out.events.append(rp.TimelineEvent(ev.kind, args))
+    for ck in rec.checkpoints:
+        state = bridge_state_from_reference(ck.state)
+        out.checkpoints.append(rp.Checkpoint(
+            ck.op_index, state, rp.state_fingerprint(state),
+            rp.functional_fingerprint(state)))
+    out.preamble = list(rec.preamble)
+    out.lines = list(rec.lines)
+    out.line_marks = list(rec.line_marks)
+    out.tx_marks = [list(m) for m in rec.tx_marks]
+    out.log_digest = rec.log_digest
+    last = out.checkpoints[-1]
+    if last.op_index == out.n_ops:
+        out.final_fingerprint = last.fingerprint
+        out.final_func_fingerprint = last.func_fingerprint
+    return out

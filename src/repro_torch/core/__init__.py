@@ -19,6 +19,10 @@
                   fault/fabric stimulus, fed by fuzz + fabric
   fuzz          — seeded fault injection + randomized protocol stimulus
                   with differential checking and trace shrinking
+  scheduler     — batched multi-backend sweep (CoVerifySession, Fig. 5)
+  replay        — time-travel replay + divergence bisection
+  profiler      — off-chip data-movement profiling: exhaustive stall
+                  attribution, Perfetto export (§IV)
 """
 from repro_torch.core.bridge import Buffer, FireBridge, MemoryBridge
 from repro_torch.core.congestion import (CongestionConfig, CongestionResult,
@@ -30,7 +34,18 @@ from repro_torch.core.equivalence import (EquivalenceReport,
 from repro_torch.core.fabric import FABRIC_LINK, FabricCluster, sharded_launch
 from repro_torch.core.fuzz import (FaultEvent, FaultPlan, FuzzReport,
                                    ProtocolFuzzer, run_fuzz)
+from repro_torch.core.profiler import (CATEGORIES, DataMovementProfiler,
+                                       RooflinePlacement, StallBreakdown,
+                                       profile_recording, profile_window,
+                                       validate_trace)
 from repro_torch.core.registers import DOORBELL, RO, RW, W1C, RegisterFile
+from repro_torch.core.replay import (DebugSession, DivergenceReport,
+                                     Recording, RecordingBridge,
+                                     ReplayWindow, bisect_divergence,
+                                     record_serving_storm)
+from repro_torch.core.scheduler import (CellResult, CoVerifySession,
+                                        SweepCell, SweepReport,
+                                        run_sequential)
 from repro_torch.core.switch import SwitchFabric, SwitchPort
 from repro_torch.core.topology import (TOPOLOGY_KINDS, Topology,
                                        build_topology, fat_tree, ring,
@@ -43,7 +58,13 @@ __all__ = [
     "CoverifyResult", "coverify", "EquivalenceReport", "check_equivalence",
     "compare_outputs", "FABRIC_LINK", "FabricCluster", "sharded_launch",
     "FaultEvent", "FaultPlan", "FuzzReport", "ProtocolFuzzer", "run_fuzz",
-    "RegisterFile", "RO", "RW", "W1C", "DOORBELL", "Transaction",
-    "TransactionLog", "Topology", "build_topology", "ring", "torus2d",
-    "fat_tree", "TOPOLOGY_KINDS", "SwitchFabric", "SwitchPort",
+    "RegisterFile", "RO", "RW", "W1C", "DOORBELL", "CellResult",
+    "CoVerifySession", "SweepCell", "SweepReport", "run_sequential",
+    "Transaction", "TransactionLog", "DebugSession", "DivergenceReport",
+    "Recording", "RecordingBridge", "ReplayWindow", "bisect_divergence",
+    "record_serving_storm", "CATEGORIES", "DataMovementProfiler",
+    "RooflinePlacement", "StallBreakdown", "profile_recording",
+    "profile_window", "validate_trace", "Topology", "build_topology",
+    "ring", "torus2d", "fat_tree", "TOPOLOGY_KINDS", "SwitchFabric",
+    "SwitchPort",
 ]

@@ -346,6 +346,13 @@ class FireBridge:
         (core/counters.py counter-diff oracle)."""
         return [self.mem.counters]
 
+    def profiler(self, label: Optional[str] = None):
+        """Off-chip data-movement profile of everything logged so far
+        (core/profiler.py, §IV): exhaustive stall attribution closing to
+        ``mem.time``, per-engine/per-op series, Perfetto export."""
+        from repro_torch.core.profiler import DataMovementProfiler
+        return DataMovementProfiler(self, label=label or self.name)
+
     # --------------------------------------------- checkpoint/restore hooks
     def get_state(self) -> Dict[str, Any]:
         """Snapshot for time-travel replay (core/replay.py).  ``mem``

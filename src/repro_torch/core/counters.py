@@ -117,19 +117,33 @@ class CounterStream:
         self.times.append(boundary)
         self.rows.append(values)
 
-    # ------------------------------------------------- canonical rendering
-    def _fmt(self, values: Tuple) -> str:
-        return " ".join(
-            f"{v:.6f}" if s.is_float else str(v)
-            for s, v in zip(self.specs, values))
+    def extend(self, boundaries: List[float], values: Tuple) -> None:
+        """One row of ``values`` at each of ``boundaries``."""
+        self.times.extend(boundaries)
+        self.rows.extend([values] * len(boundaries))
 
+    # ------------------------------------------------- canonical rendering
     def _render(self) -> None:
+        """Render the samples appended since the last call: the time, then
+        each value, floats to 6 decimals (``%.6f``, as ``f"{v:.6f}"``)
+        and the rest as ``str`` (``%s``), one line a sample.  One format
+        string for the stream, the values of a row rendered once for the
+        run of samples that hold it (``CounterBank.tick`` appends one row
+        object at every boundary it crosses), and one hash update a
+        batch: a long fabric run samples millions of rows, and this is
+        its host cost."""
         done = len(self._lines)
+        if done == len(self.times):
+            return
+        fmt = " ".join("%.6f" if s.is_float else "%s" for s in self.specs)
+        new = []
+        last, tail = None, ""
         for t, row in zip(self.times[done:], self.rows[done:]):
-            line = f"{t:.6f} {self._fmt(row)}"
-            self._hash.update(line.encode())
-            self._hash.update(b"\n")
-            self._lines.append(line)
+            if row is not last:
+                last, tail = row, " " + fmt % tuple(row)
+            new.append("%.6f" % t + tail)
+        self._hash.update(("\n".join(new) + "\n").encode())
+        self._lines.extend(new)
 
     def canonical(self) -> List[str]:
         """Stable one-line-per-sample rendering (floats fixed to 6
@@ -228,11 +242,16 @@ class CounterBank:
         if now < b or not _ENABLED:
             return
         vals = self._sample()
-        append = self.stream.append
-        while b <= now:
-            append(b, vals)
-            self._k += 1
-            b = self.interval * self._k
+        # the last boundary interval * k <= now, found by the same
+        # multiplication the boundaries are made of
+        iv, k0 = self.interval, self._k
+        k1 = max(k0, int(now // iv))
+        while iv * (k1 + 1) <= now:
+            k1 += 1
+        while iv * k1 > now:
+            k1 -= 1
+        self.stream.extend([iv * k for k in range(k0, k1 + 1)], vals)
+        self._k = k1 + 1
 
     # ------------------------------------------------------------- queries
     def value(self, name: str) -> Any:

@@ -704,11 +704,11 @@ class FabricCluster:
                    for r in self.link_stats().values())
 
     def profiler(self, label: Optional[str] = None):
-        """Data-movement profile of the whole cluster — needs
-        ``core/profiler.py``, not ported yet."""
-        raise NotImplementedError(
-            "the data-movement profiler is not ported yet (ROADMAP queue A "
-            "item 8)")
+        """Data-movement profile of the whole cluster (core/profiler.py):
+        one channel per fabric port plus the shared host channel and every
+        device's DDR/CSR, with per-collective-leg op attribution."""
+        from repro_torch.core.profiler import DataMovementProfiler
+        return DataMovementProfiler(self, label=label or self.name)
 
     def device_congestion(self) -> Optional[CongestionResult]:
         """Merged per-device DDR-link statistics (engines prefixed

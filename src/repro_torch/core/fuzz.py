@@ -475,6 +475,9 @@ class ProtocolFuzzer:
         self._table: Optional[dict] = mm_table
         self._engine: Any = None
         self._engine_factory = engine_factory
+        # the last shrink's replay-lane sessions, backend -> (ops_applied,
+        # replays); empty after a shrink that took the linear lane only
+        self.shrink_counts: Dict[str, Tuple[int, int]] = {}
 
     # ------------------------------------------------------- lazy backends
     def _matmul_table(self) -> dict:
@@ -953,27 +956,117 @@ class ProtocolFuzzer:
         """Minimize a failing scenario to its shortest failing op prefix.
 
         Execution is deterministic given the seed, so a prefix replays
-        identically up to its truncation point: the linear lane re-runs
-        prefixes 1, 2, ... through ``run_scenario`` and returns the first
-        that fails.  For a bridge scenario of more than one op,
-        ``use_replay=True`` asks for the checkpointed window-replay lane
-        (prefix state restored from the nearest checkpoint, binary search
-        over prefixes), which needs the replay engine: it raises until
-        that engine is ported, and never quietly takes the linear lane.
-        The register / serving layers, whose op cost is trivial, and
-        ``use_replay=False`` take the linear lane."""
+        identically up to its truncation point.  For bridge scenarios the
+        candidate prefixes are materialized by **checkpointed window
+        replay** (core/replay.py): each backend's full scenario is
+        recorded ONCE with a checkpoint every ``checkpoint_every``
+        launches, and prefix-k state is restored from the nearest
+        checkpoint instead of re-executing ops 1..k from scratch — O(n)
+        total ops instead of the full-re-run-per-prefix O(n²).  The
+        winning prefix is then re-run once through ``run_scenario`` for
+        an authoritative ``ScenarioResult``.  ``use_replay=False`` (and
+        the register/serving layers, whose op cost is trivial) keep the
+        linear re-run lane.  ``shrink_counts`` holds the replay lane's
+        event counts afterwards."""
+        self.shrink_counts = {}
         if use_replay and scn.layer == "bridge" and len(scn.ops) > 1:
-            raise NotImplementedError(
-                "the replay lane of shrink (use_replay=True) needs "
-                "core/replay.py, which the port does not have yet (ROADMAP "
-                "queue A item 8); call shrink(scn, use_replay=False) for "
-                "the linear lane")
+            got = self._shrink_bridge_replay(scn, max(1, checkpoint_every))
+            if got is not None:
+                return got
         for k in range(1, len(scn.ops) + 1):
             sub = Scenario(scn.index, scn.layer, scn.ops[:k])
             res = self.run_scenario(sub)
             if not res.ok:
                 return sub, res
         return scn, self.run_scenario(scn)
+
+    # ---------------------------------------------- replay-backed shrinking
+    _BRIDGE_EVENTS_PER_OP = 6       # alloc x3 + host_write x2 + launch
+
+    def _record_bridge_scenario(self, scn: Scenario, backend: str,
+                                checkpoint_every: int):
+        """Record one backend's run of a bridge scenario as a replayable
+        timeline, checkpointing every ``checkpoint_every`` scenario ops.
+        The event stream mirrors ``_run_bridge`` exactly (same buffer
+        names, same fault-plan fork, same burst lists), so prefix state
+        restored from a checkpoint is bit-identical to a fresh prefix
+        re-run."""
+        from repro_torch.core import replay as rp
+        table = self._matmul_table()
+
+        def factory():
+            plan = self.plan.fork(f"{scn.label}/{backend}",
+                                  scenario=scn.index)
+            fb = FireBridge(congestion=self.congestion, fault_plan=plan)
+            fb.register_op("mm", **table)
+            return fb
+
+        def program(rec):
+            for j, (_, size) in enumerate(scn.ops):
+                rng = np.random.default_rng(size * 1009 + j)
+                a = rng.normal(size=(size, size)).astype(np.float32)
+                b = rng.normal(size=(size, size)).astype(np.float32)
+                rec.do("alloc", f"a{j}", a.shape, np.float32)
+                rec.do("alloc", f"b{j}", b.shape, np.float32)
+                rec.do("alloc", f"c{j}", (size, size), np.float32)
+                rec.do("host_write", f"a{j}", a)
+                rec.do("host_write", f"b{j}", b)
+                rec.do("launch", "mm", backend, (f"a{j}", f"b{j}"),
+                       (f"c{j}",), "mm",
+                       lambda s=size: mm_ops.transactions(
+                           s, s, s, bm=self.TILE, bn=self.TILE,
+                           bk=self.TILE, dtype_bytes=4), {})
+                if (j + 1) % checkpoint_every == 0:
+                    rec.checkpoint()
+
+        sess = rp.DebugSession(factory, checkpoint_interval=0,
+                               label=f"{scn.label}/{backend}")
+        return sess, sess.record(program)
+
+    def _shrink_bridge_replay(self, scn: Scenario, checkpoint_every: int
+                              ) -> Optional[Tuple[Scenario, ScenarioResult]]:
+        """Find the shortest failing launch prefix via checkpointed prefix
+        replay + binary search; None defers to the linear lane (e.g. a
+        failure mode the prefix probe cannot see).
+
+        The probe (cross-backend output divergence or a logged violation
+        in the prefix state) is MONOTONE in prefix length — a diverged
+        buffer stays diverged and the violation list only grows — so the
+        shortest failing prefix is found in O(log n) probes, each
+        restored from the nearest checkpoint instead of re-executed from
+        time zero."""
+        recs = {b: self._record_bridge_scenario(scn, b, checkpoint_every)
+                for b in self.backends}
+        per_op = self._BRIDGE_EVENTS_PER_OP
+
+        def probe(k: int) -> bool:
+            outs: Dict[str, Dict[str, np.ndarray]] = {}
+            bad = False
+            for backend, (sess, rec) in recs.items():
+                fb = sess.replay(rec, k * per_op, k * per_op).target
+                outs[backend] = {n: b.array.copy()
+                                 for n, b in fb.mem.buffers.items()}
+                bad = bad or bool(fb.log.violations)
+                self.shrink_counts[backend] = (sess.ops_applied,
+                                               sess.replays)
+            return bad or not compare_outputs(outs, tol=self.tol).passed
+
+        n = len(scn.ops)
+        if not probe(n):
+            return None                       # invisible to the probe —
+        lo, hi = 0, n                         # defer to the linear lane
+        while hi - lo > 1:                    # invariant: probe(hi) fails
+            mid = (lo + hi) // 2
+            if probe(mid):
+                hi = mid
+            else:
+                lo = mid
+        sub = Scenario(scn.index, scn.layer, scn.ops[:hi])
+        res = self.run_scenario(sub)          # authoritative re-check
+        if not res.ok:
+            return sub, res
+        return None                          # probe/result disagree —
+                                             # defer to the linear lane
 
 
 def planted_bug_table(tile: int = ProtocolFuzzer.TILE,

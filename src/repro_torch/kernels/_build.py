@@ -21,6 +21,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
@@ -34,6 +35,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
+# held around every build-or-load: threads that reach a kernel for the
+# first time at once (the cells of a sweep) build it once, and none loads
+# a library another thread is still writing
+_lock = threading.Lock()
 # compiler output of each library built by this process
 logs: Dict[str, str] = {}
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
@@ -115,19 +120,23 @@ def load(name: str) -> ctypes.CDLL:
     """The shared library of ``csrc/<name>.cu``, built if need be."""
     lib = _libs.get(name)
     if lib is None:
-        lib = _finish(name, *_start(name))
+        with _lock:
+            lib = _libs.get(name)
+            if lib is None:
+                lib = _finish(name, *_start(name))
     return lib
 
 
 def build_all() -> Dict[str, ctypes.CDLL]:
     """Build every kernel, one ``nvcc`` per source, all started together."""
-    started = [(n, _start(n)) for n in sources() if n not in _libs]
-    failure = None
-    for n, job in started:
-        try:
-            _finish(n, *job)
-        except RuntimeError as e:       # reap every compiler before raising
-            failure = failure or e
-    if failure is not None:
-        raise failure
-    return {n: _libs[n] for n in sources()}
+    with _lock:
+        started = [(n, _start(n)) for n in sources() if n not in _libs]
+        failure = None
+        for n, job in started:
+            try:
+                _finish(n, *job)
+            except RuntimeError as e:   # reap every compiler before raising
+                failure = failure or e
+        if failure is not None:
+            raise failure
+        return {n: _libs[n] for n in sources()}

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from typing import Tuple
 
 import torch
@@ -43,6 +44,7 @@ _HEAD_DIMS = (16, 32, 64, 80, 128)
 launches = 0
 dkdv_launches = 0
 dq_launches = 0
+_count_lock = threading.Lock()     # cells of a sweep launch from threads
 
 
 def _tile_mask(i: int, j: int, bq: int, bk: int, causal: bool, window: int,
@@ -224,9 +226,10 @@ _LIB = {"flash_fwd": "flash_fwd", "flash_dkdv": "flash_bwd",
 def _fn(name: str):
     fn = getattr(_build.load(_LIB[name]), name)
     if not fn.argtypes:
+        # argtypes last: a thread that sees them sees the restype too
+        fn.restype = ctypes.c_int
         fn.argtypes = (_ARGTYPES[name] + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
     return fn
 
 
@@ -235,8 +238,8 @@ def _fp32_fwd_scratch(B, H, KH, Sq, Skv, D, device):
     pre-pass), or None where the fp32 body needs none (D = 128)."""
     fn = _build.load("flash_fwd").flash_fwd_scratch
     if not fn.argtypes:
-        fn.argtypes = [ctypes.c_int] * 7
         fn.restype = ctypes.c_longlong
+        fn.argtypes = [ctypes.c_int] * 7
     n = fn(B, H, KH, Sq, Skv, D, 0)
     return torch.empty(n, dtype=torch.float32, device=device) if n else None
 
@@ -299,7 +302,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           out.data_ptr(), lse.data_ptr(),
                           scratch.data_ptr() if scratch is not None else None),
             B, H, KH, Sq, Skv, D, causal, window, bf16, q.device)
-    launches += 1
+    with _count_lock:
+        launches += 1
     return out, lse
 
 
@@ -341,7 +345,8 @@ def flash_dkdv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            dk.data_ptr(), dv.data_ptr()),
             B, H, KH, Sq, Skv, D, causal, window, q.dtype == torch.bfloat16,
             q.device)
-    dkdv_launches += 1
+    with _count_lock:
+        dkdv_launches += 1
     return dk, dv
 
 
@@ -364,5 +369,6 @@ def flash_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          dq.data_ptr()),
             B, H, KH, Sq, Skv, D, causal, window, q.dtype == torch.bfloat16,
             q.device)
-    dq_launches += 1
+    with _count_lock:
+        dq_launches += 1
     return dq

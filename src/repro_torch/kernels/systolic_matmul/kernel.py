@@ -20,6 +20,7 @@ tensors that lie on the CPU.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -32,6 +33,7 @@ _DTYPES = (torch.float32, torch.bfloat16)
 # number of CUDA kernel launches made by ``matmul`` (plain integer; a
 # caller that wants a per-run count sets it to 0 first)
 launches = 0
+_count_lock = threading.Lock()     # cells of a sweep launch from threads
 
 
 def _blocks(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int,
@@ -69,12 +71,14 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
 def _lib():
     lib = _build.load("systolic_matmul")
     if not lib.systolic_matmul.argtypes:
+        # the argtypes tested above are bound last: a thread that sees them
+        # sees every other binding too
+        lib.systolic_matmul_scratch.argtypes = [ctypes.c_int] * 4
+        lib.systolic_matmul_scratch.restype = ctypes.c_longlong
+        lib.systolic_matmul.restype = ctypes.c_int
         lib.systolic_matmul.argtypes = ([ctypes.c_void_p] * 3
                                         + [ctypes.c_int] * 5
                                         + [ctypes.c_void_p] * 2)
-        lib.systolic_matmul.restype = ctypes.c_int
-        lib.systolic_matmul_scratch.argtypes = [ctypes.c_int] * 4
-        lib.systolic_matmul_scratch.restype = ctypes.c_longlong
     return lib
 
 
@@ -115,5 +119,6 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bn: int = 128,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"systolic_matmul launch refused: CUDA error {err}")
-    launches += 1
+    with _count_lock:
+        launches += 1
     return c

@@ -14,9 +14,9 @@ observable.  This module provides the stimulus side:
   count.  ``fork()`` derives child traces by the same sha256 construction
   as ``FaultPlan.fork`` / ``runfarm.units.fork_seed``, so run-farm
   campaigns can shard arrival-trace sweeps without coordination.
-* ``drive_open_loop`` is THE open-loop decision loop (the reference's
-  replay recorder shares it; the port has no replay yet, ROADMAP queue A
-  item 8): at each scheduler tick it submits every
+* ``drive_open_loop`` is THE open-loop decision loop (the replay
+  recorder, ``core/replay.py::open_loop_program``, shares it): at each
+  scheduler tick it submits every
   arrival whose time has come through the CSR protocol (prompt poke,
   SUBMIT_*, DOORBELL), steps the engine, and fast-forwards the modeled
   clock over idle gaps.  Submission instants depend only on the engine's
@@ -25,7 +25,7 @@ observable.  This module provides the stimulus side:
 
 Works against a ``ServingEngine`` in continuous-batching mode (it exposes
 ``clock`` / ``advance_clock``; the reference's cluster engine waits for
-ROADMAP queue A item 6).
+ROADMAP queue A item 10).
 """
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ import numpy as np
 __all__ = [
     "Arrival", "ArrivalTrace", "fork_seed", "poisson_trace",
     "bursty_trace", "replayed_trace", "build_trace", "ARRIVAL_KINDS",
-    "apply_event", "drive_open_loop", "run_open_loop",
+    "drive_open_loop", "run_open_loop",
 ]
 
 
@@ -193,14 +193,17 @@ def build_trace(kind: str, seed: int, **params: Any) -> ArrivalTrace:
 def drive_open_loop(do: Callable[..., Any], target: Any,
                     trace: ArrivalTrace, max_ticks: int = 200_000) -> int:
     """THE open-loop decision loop, parameterized by the event sink:
-    ``do(kind, *args)`` applies one event (``run_open_loop``).
+    ``do(kind, *args)`` either applies directly (``run_open_loop``) or
+    records + applies (``replay.open_loop_program``) — one loop, so the
+    live and recorded stimulus cannot drift.
 
     Per iteration: submit every arrival due at the target's current
     modeled clock through the CSR protocol, then either step the
     scheduler (work pending/active) or fast-forward the clock to the next
     arrival (idle).  Returns the number of scheduler ticks driven.
     """
-    pending = lambda: len(target.pending)
+    pending = (target._n_pending if hasattr(target, "engines")
+               else (lambda: len(target.pending)))
     arrivals = sorted(trace.arrivals, key=lambda a: (a.time, a.rid))
     i, ticks = 0, 0
     while i < len(arrivals) or pending() or target._n_active():
@@ -232,26 +235,15 @@ def drive_open_loop(do: Callable[..., Any], target: Any,
     return ticks
 
 
-def apply_event(eng: Any, kind: str, *args: Any) -> Any:
-    """Execute one event of ``drive_open_loop`` against a live engine, as
-    the reference's ``replay.apply_event`` does for a serving target."""
-    if kind == "host_poke":
-        data = np.asarray(args[1])
-        eng.mem.buffers[args[0]].array[:data.size] = data
-        return None
-    if kind == "csr_write":
-        return eng.csr.fb_write_32(eng.csr.addr_of(args[0]), args[1])
-    if kind == "step":
-        return eng.step()
-    if kind == "advance":
-        return eng.advance_clock(args[0])
-    raise ValueError(f"unknown serving event kind {kind!r}")
-
-
 def run_open_loop(target: Any, trace: ArrivalTrace,
                   max_ticks: int = 200_000) -> int:
-    """Drive ``trace`` against a live engine (continuous-batching mode);
-    returns the scheduler-tick count."""
-    return drive_open_loop(lambda kind, *args: apply_event(target, kind,
-                                                           *args),
-                           target, trace, max_ticks)
+    """Drive ``trace`` against a live engine (continuous-batching mode)
+    without recording; returns the scheduler-tick count.  Events are
+    funneled through ``replay.apply_event`` — the exact executor a
+    recorded run replays through."""
+    from repro_torch.core.replay import TimelineEvent, apply_event
+
+    def do(kind: str, *args: Any) -> Any:
+        return apply_event(target, TimelineEvent(kind, args))
+
+    return drive_open_loop(do, target, trace, max_ticks)

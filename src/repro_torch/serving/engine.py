@@ -12,8 +12,9 @@ The control plane (CSR map, scheduler, KV paging, counters, transaction
 log) is the reference's, line for line: its log digest and CSR log are the
 same for the same request stream.  Prefill and decode are plain callables
 (``make_prefill_fn`` / ``make_decode_fn``) where the reference jits them;
-its ``jit_fns`` sharing (for the cluster engine) and ``profile`` wait for
-ROADMAP queue A items 6 and 8.  The cache and the parameters live on
+its ``jit_fns`` sharing waits for the cluster engine (ROADMAP queue A item
+10).  ``profiler()`` and ``get_state`` / ``set_state`` serve the
+data-movement profiler and time-travel replay.  The cache and the parameters live on
 ``device`` (default ``"cuda"``), and the argmax tokens come back to the
 host as in the reference.  For the ssm
 and hybrid families the prefill runs the WKV-6 / SSD scan kernels; as in
@@ -380,9 +381,12 @@ class ServingEngine:
         return [self.counters, self.mem.counters]
 
     def profiler(self, label: str = "serving"):
-        raise NotImplementedError(
-            "the data-movement profiler is not ported yet (ROADMAP queue A "
-            "item 8)")
+        """Data-movement profile of the serving DMA traffic
+        (core/profiler.py): prompt-upload vs token-writeback attribution
+        rides on the ``serve_dma`` read/write split
+        (``DataMovementProfiler.serving_rows``)."""
+        from repro_torch.core.profiler import DataMovementProfiler
+        return DataMovementProfiler(self, label=label)
 
     # --------------------------------------------- checkpoint/restore hooks
     def get_state(self) -> dict:

@@ -369,6 +369,34 @@ def test_fabric_state_handover_mid_program(case):
 
 
 def test_profiler_raises_naming_item_8():
-    fab = port_core.FabricCluster(2)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        fab.profiler()
+    """``FabricCluster.profiler()`` (the name dates from when it raised)
+    profiles: a 2-device sharded matmul with a DoS link gives the
+    reference's channels, per-port and per-engine rows, per-op (collective
+    leg and launch) rows and Perfetto bytes, and every channel's
+    attribution closes to its horizon."""
+    import json
+
+    def run(core, mm, **kw):
+        fab = core.FabricCluster(2, link_config=core.CongestionConfig(
+            **LINK), profile=True)
+        fab.register_op("mm", **mm.matmul_backends(tile=16, jit=False,
+                                                   **kw))
+        mm.matmul_fabric_firmware(fab, "mm", "oracle", size=32, tile=16)
+        fab.all_reduce("c")
+        return fab.profiler()
+
+    port = run(port_core, port_mm, device="cpu")
+    ref = run(ref_core, ref_mm)
+    assert [c.name for c in port.channels] == [c.name for c in ref.channels]
+    assert "fabric/port1" in [c.name for c in port.channels]
+    assert port.engine_rows() == ref.engine_rows()
+    assert port.op_rows() == ref.op_rows()
+    assert len(port.op_rows()) > 3
+    for ch in port.channels:                 # the left fold closes
+        total = 0.0
+        for c in port_core.CATEGORIES:
+            total += ch.breakdown.cycles[c]
+        assert total == ch.horizon, ch.name
+    dump = lambda p: json.dumps(p.to_perfetto(), sort_keys=True,  # noqa
+                                separators=(",", ":"))
+    assert dump(port) == dump(ref)

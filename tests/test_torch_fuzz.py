@@ -242,15 +242,39 @@ def test_planted_bug_caught_and_shrunk_like_reference():
 
 
 def test_shrink_replay_lane_raises_naming_item_8():
-    fz = _port_fuzzer(seed=0, layers=("bridge",),
-                      mm_table=port_fuzz.planted_bug_table(device="cpu"),
-                      bridge_ops=(3, 4))
-    scn = fz.scenario(0)
-    assert len(scn.ops) == 3
-    with pytest.raises(NotImplementedError, match="item 8"):
-        fz.shrink(scn)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        fz.shrink(scn, use_replay=True)
+    """The replay lane of ``shrink`` (``use_replay=True``, the default;
+    the name dates from when it raised): checkpointed prefix replay +
+    binary search gives the reference's prefix, digest, failure and
+    per-session ``ops_applied`` / ``replays`` counts, and the linear
+    lane's prefix."""
+    kw = dict(seed=1, layers=("bridge",), bridge_ops=(10, 11))
+    ref_fz = ref_core.ProtocolFuzzer(mm_table=ref_fuzz.planted_bug_table(),
+                                     **kw)
+    port_fz = _port_fuzzer(
+        mm_table=port_fuzz.planted_bug_table(device="cpu"), **kw)
+    scn = port_fz.scenario(0)
+    assert len(scn.ops) == 10
+    import repro.core.replay as ref_rp
+    real = ref_rp.DebugSession.__init__
+    made = []                  # the reference's shrink keeps no counts
+
+    def init(self, *a, **k):
+        real(self, *a, **k)
+        made.append(self)
+
+    sub, res = port_fz.shrink(scn)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ref_rp.DebugSession, "__init__", init)
+        ref_sub, ref_res = ref_fz.shrink(ref_fz.scenario(0))
+    assert not res.ok and sub.ops == ref_sub.ops == scn.ops[:len(sub.ops)]
+    assert res.digest == ref_res.digest
+    assert res.failures[0].split(":")[0] == ref_res.failures[0].split(":")[0]
+    assert list(port_fz.shrink_counts) == list(port_fz.backends)
+    assert list(port_fz.shrink_counts.values()) == \
+        [(s.ops_applied, s.replays) for s in made]
+    lin_sub, lin_res = port_fz.shrink(scn, use_replay=False)
+    assert lin_sub.ops == sub.ops and lin_res.digest == res.digest
+    assert port_fz.shrink_counts == {}
     # the register layer's shrink is the linear lane in both packages
     reg = _port_fuzzer(seed=11, layers=("registers",))
     sub, res = reg.shrink(reg.scenario(0))

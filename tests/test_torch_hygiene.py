@@ -54,7 +54,8 @@ def test_port_files_exist():
                  "serving/kvpool.py", "serving/slo.py",
                  "serving/arrivals.py", "core/coverage.py", "core/fuzz.py",
                  "core/topology.py", "core/switch.py", "core/fabric.py",
-                 "sharding/specs.py", "goldens.py"):
+                 "sharding/specs.py", "goldens.py", "core/scheduler.py",
+                 "core/replay.py", "core/profiler.py"):
         assert want in names
     for src in ("systolic_matmul", "flash_fwd", "flash_bwd", "ssd_scan",
                 "wkv_scan"):

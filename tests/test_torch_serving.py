@@ -285,8 +285,11 @@ def test_engine_refusals():
     cfg = smoke(get_config("rwkv6-7b"))
     params = tf.init_params(cfg, torch.Generator().manual_seed(0))
     eng = ServingEngine(cfg, params, max_len=32, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 8"):
-        eng.profiler()
+    prof = eng.profiler()                    # a profile, no refusal
+    assert [c.name for c in prof.channels] == ["ddr", "csr"]
+    assert prof.serving_rows()[0] == "direction,transactions,bytes," \
+        "stall_cycles"
+    assert all(c.breakdown.total == c.horizon for c in prof.channels)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             ServingEngine(cfg, params, max_len=32)       # device defaults
