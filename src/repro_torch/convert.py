@@ -131,8 +131,10 @@ def _tensor(arr: Any, dev: torch.device) -> torch.Tensor:
 def params_from_reference(tree: Any,
                           device: Union[str, torch.device] = "cuda") -> Any:
     """A nested dict / list / tuple of numpy arrays as the same nesting of
-    tensors on ``device`` (``ssm`` and ``hybrid`` trees included: the
-    hybrid's stacked mamba leaves keep their ``(n_super, per)`` axes).
+    tensors on ``device`` (every family's tree: the hybrid's stacked mamba
+    leaves keep their ``(n_super, per)`` axes, the vlm's self-attention
+    leaves their ``(n_cross, per)`` axes beside ``blocks/cross/*``, the
+    moe's ``blocks/moe/*`` their ``(L, E)`` axes).
     Leaf paths are those of the port's equivalence flattener
     (``core/equivalence.py``), so a converted tree compares leaf for leaf
     against the arrays it came from."""
@@ -155,8 +157,9 @@ def cache_from_reference(cache: Dict[str, Any],
                          ) -> Dict[str, Any]:
     """The reference's prefill / decode cache (``make_prefill_fn``,
     ``init_cache``) as numpy arrays -> the port's cache on ``device``:
-    the same keys, shapes and dtypes (``conv_tails`` stays a tuple), so
-    the port's ``make_decode_fn`` continues from the reference's prefill."""
+    the same keys, shapes and dtypes (``conv_tails`` stays a tuple, a
+    vlm's ``cross_k`` / ``cross_v`` come along), so the port's
+    ``make_decode_fn`` continues from the reference's prefill."""
     return params_from_reference(cache, device)
 
 

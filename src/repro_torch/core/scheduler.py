@@ -405,7 +405,7 @@ class CoVerifySession:
         """Register the serving-target builder for open-loop serving
         cells: ``factory(backend, devices, fault_plan)`` returns a
         continuous-batching ``ServingEngine`` (devices == 1) or a
-        cluster engine (not in the port yet) — typically sharing one
+        ``ClusterServingEngine`` — typically sharing one
         prefill/decode pair across all cells, like ``register_op``
         shares backend executables."""
         self._serving_factory = factory

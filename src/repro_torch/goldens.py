@@ -4,14 +4,15 @@ on the port.
 Each program builds its target from the traces' frozen seeds and makes the
 same calls, in the same order, as the reference's recorded golden program;
 a trace file is the canonical rendering of the target's logs (a header
-line before each log of a fabric), a counters file the canonical rendering
-of its counter banks.  The programs run directly, with no replay
-recording: a recording only observes the calls it makes.  Token values and
-DDR contents never enter a trace, so the files are the same whichever
-``device`` runs the backends.
+line before each log of a fabric or a serving cluster), a counters file
+the canonical rendering of its counter banks.  The programs run directly,
+with no replay recording: a recording only observes the calls it makes.
+Token values and DDR contents never enter a trace, so the files are the
+same whichever ``device`` runs the backends or the served model.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, List, Union
 
 import numpy as np
@@ -25,6 +26,7 @@ from repro_torch.core.fuzz import FaultPlan, ProtocolFuzzer
 from repro_torch.kernels.systolic_matmul import ops as mm_ops
 from repro_torch.kernels.systolic_matmul.sweep import (matmul_backends,
                                                        matmul_firmware)
+from repro_torch.serving.cluster import ClusterServingEngine
 
 Device = Union[str, torch.device]
 
@@ -33,6 +35,8 @@ SINGLE_CONG = CongestionConfig(dos_prob=0.05, seed=7)
 GOLDEN_LINK = CongestionConfig(link_bytes_per_cycle=64.0, base_latency=100.0,
                                max_burst_bytes=4096, dos_prob=0.05, seed=11)
 FUZZ_SEED = 5
+STORM_SEED = 0                  # cluster storm prompt seed
+OPEN_LOOP_SEED = 23             # open-loop serving arrival + fault seed
 
 
 def single_device_launch(device: Device = "cuda") -> FireBridge:
@@ -137,12 +141,91 @@ def fabric_torus_all_reduce(device: Device = "cuda") -> FabricCluster:
     return fab
 
 
+def storm_requests():
+    """The cluster storm's six requests: (rid, prompt, max_new_tokens)."""
+    rng = np.random.default_rng(STORM_SEED)
+    return [(rid, [int(t) for t in rng.integers(0, 100, 6 + rid % 5)],
+             2 + rid % 3) for rid in range(6)]
+
+
+@functools.lru_cache(maxsize=4)
+def _smoke_model(device: str):
+    """The served model of the cluster goldens: llama3.2-1b at smoke size,
+    bf16 weights drawn from seed 0 on ``device`` (weight and token values
+    never enter a trace)."""
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.models.transformer import RunFlags, init_params
+    cfg = smoke(get_config("llama3.2-1b"))
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = init_params(cfg, gen, dtype=torch.bfloat16)
+    return cfg, params, RunFlags(attn_impl="chunked", q_chunk=16,
+                                 kv_chunk=16)
+
+
+def drive_storm(eng, reqs, max_ticks: int = 10_000) -> None:
+    """The storm program (``core/replay.py::serving_storm_program``), run
+    directly: each request's prompt poked into ``prompt_in``, SUBMIT_* and
+    DOORBELL written through the CSRs, then scheduler ticks until the
+    cluster drains."""
+    for rid, prompt, mx in reqs:
+        data = np.asarray(prompt, np.int32)
+        eng.mem.buffers["prompt_in"].array[:data.size] = data
+        for name, val in (("SUBMIT_ID", rid), ("SUBMIT_LEN", len(prompt)),
+                          ("SUBMIT_MAXNEW", mx), ("DOORBELL", 1)):
+            eng.csr.fb_write_32(eng.csr.addr_of(name), int(val))
+    for _ in range(max_ticks):
+        if not eng._n_pending() and not eng._n_active():
+            break
+        eng.step()
+
+
+def cluster_serving_storm(device: Device = "cuda") -> ClusterServingEngine:
+    """Fixed cluster-serving storm: 6 requests round-robined across 2
+    device-local engines behind one CSR front-end, prompt/token DMA
+    contending on the shared host channel."""
+    cfg, params, flags = _smoke_model(str(torch.device(device)))
+    clu = ClusterServingEngine(cfg, params, n_devices=2, max_slots=2,
+                               max_len=32, prompt_pad=8, flags=flags,
+                               device=device)
+    drive_storm(clu, storm_requests())
+    return clu
+
+
+def open_loop_trace():
+    """The open-loop golden's arrivals: a burst of up to 8 lands about 2
+    requests a device, and every request reserves at least 2 of its
+    engine's 3 pages, so the second concurrent request a device defers."""
+    from repro_torch.serving.arrivals import bursty_trace
+    return bursty_trace(OPEN_LOOP_SEED, n_requests=10, burst_size=8,
+                        gap_in_burst=10.0, gap_between=900.0,
+                        prompt_lens=(3, 10), max_new=(1, 4))
+
+
+def cluster_open_loop_serving(device: Device = "cuda"
+                              ) -> ClusterServingEngine:
+    """Fixed open-loop serving run: the bursty arrival trace through
+    continuous batching on a 4-device ring-routed cluster with per-device
+    KV page pools (3 pages of 8 entries) and a fault plan perturbing the
+    host-channel DMA."""
+    from repro_torch.serving.arrivals import run_open_loop
+    cfg, params, flags = _smoke_model(str(torch.device(device)))
+    clu = ClusterServingEngine(
+        cfg, params, n_devices=4, max_slots=2, max_len=32, prompt_pad=8,
+        flags=flags, topology="ring", batching="continuous", kv_pages=3,
+        kv_page_size=8, fault_plan=FaultPlan(seed=OPEN_LOOP_SEED),
+        device=device)
+    run_open_loop(clu, open_loop_trace())
+    return clu
+
+
 PROGRAMS: Dict[str, Callable[[Device], object]] = {
     "single_device_launch": single_device_launch,
     "fabric_all_reduce": fabric_all_reduce,
     "fabric_batched_launch": fabric_batched_launch,
     "fabric_torus_all_reduce": fabric_torus_all_reduce,
     "faulty_fuzz": faulty_fuzz,
+    "cluster_serving_storm": cluster_serving_storm,
+    "cluster_open_loop_serving": cluster_open_loop_serving,
 }
 # the committed counter streams (``<name>.counters``)
 COUNTER_TRACES = ("single_device_launch", "fabric_torus_all_reduce")
@@ -154,6 +237,11 @@ def trace_lines(target) -> List[str]:
         lines = ["# fabric interconnect log"] + target.log.canonical()
         for i, d in enumerate(target.devices):
             lines += [f"# device {i} log"] + d.log.canonical()
+        return lines
+    if isinstance(target, ClusterServingEngine):
+        lines = ["# cluster front log"] + target.log.canonical()
+        for i, e in enumerate(target.engines):
+            lines += [f"# engine {i} log"] + e.mem.log.canonical()
         return lines
     return target.log.canonical()
 

@@ -26,12 +26,24 @@ import torch.nn.functional as F
 # ---------------------------------------------------------------------------
 
 
+# a leaf of more elements than this is drawn one leading-axis slice at a
+# time into its preallocated leaf, so the fp32 draw never holds more than
+# one slice (moonshot-v1-16b-a3b's stacked expert leaves are 35 GB in fp32);
+# every leaf below it is one draw, as it always was
+_WHOLE_DRAW_ELEMS = 1 << 31
+
+
 def normal(gen: Optional[torch.Generator], shape: Tuple[int, ...],
            std: float, dtype) -> torch.Tensor:
     """N(0, std^2) draws in fp32 from ``gen`` on its device, cast to
     ``dtype``."""
     if gen is None:
         return torch.empty(shape, dtype=dtype)
+    if math.prod(shape) > _WHOLE_DRAW_ELEMS and len(shape) > 1:
+        out = torch.empty(shape, dtype=dtype, device=gen.device)
+        for sl in out:
+            sl.copy_(normal(gen, tuple(sl.shape), std, dtype))
+        return out
     x = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32)
     return x.mul_(std).to(dtype)
@@ -103,6 +115,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, fraction: str,
     if rot == d:
         return yr.to(x.dtype)
     return torch.cat([yr.to(x.dtype), x[..., rot:]], dim=-1)
+
+
+def sinusoidal_positions(positions: torch.Tensor, d_model: int
+                         ) -> torch.Tensor:
+    """Fixed sin-cos position encoding; positions (B, S) -> (B, S, d_model)
+    fp32 (the ``frames`` frontend's positions)."""
+    half = d_model // 2
+    inv = 1.0 / (10_000.0 ** (torch.arange(half, dtype=torch.float32,
+                                           device=positions.device) / half))
+    ang = positions[..., None].float() * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -1,17 +1,20 @@
-"""Model assembly — the port of ``repro.models.transformer`` for the dense,
-ssm (rwkv6) and hybrid (zamba2) families: training, prefill and decode.
+"""Model assembly — the port of ``repro.models.transformer`` for all six
+families: dense, moe, audio (an encoder over precomputed frames), vlm
+(a text stack with gated cross attention over precomputed patches), ssm
+(rwkv6) and hybrid (zamba2): training, prefill and decode.
 
 Layer weights stay stacked on leading axes exactly as the reference's
-``init_params`` makes them (``L`` for dense and ssm, ``(n_super, per)`` for
-the hybrid's mamba layers), so a parameter tree converted from the
+``init_params`` makes them (``L`` for dense, moe, audio and ssm,
+``(n_cross, per)`` for the vlm's self-attention layers, ``(n_super, per)``
+for the hybrid's mamba layers), so a parameter tree converted from the
 reference is a leaf-for-leaf copy, checkpoint leaf paths are the same, and
 gradients accumulate into the stacked leaves.  The reference's
 ``lax.scan`` over the stack becomes a Python loop over the layers, and
 ``jax.checkpoint`` (``flags.remat``) becomes ``torch.utils.checkpoint``
-around each dense layer of a training forward: the forward of every layer
-runs again in the backward, so under ``attn_impl="pallas"`` one step
-launches the attention forward kernel 2·L times and each backward kernel
-L times.
+around each attention layer of a training forward: the forward of every
+layer runs again in the backward, so under ``attn_impl="pallas"`` one
+dense step launches the attention forward kernel 2·L times and each
+backward kernel L times.
 
 Three entry points, as in the reference: ``make_loss_fn``,
 ``make_prefill_fn`` -> (last logits, cache) and ``make_decode_fn`` (one
@@ -19,14 +22,17 @@ token with the cache).  The training forward and the prefill of an ssm /
 hybrid model start every scan from no state, which routes them through
 the WKV-6 / SSD scan kernels (``models/rwkv6.py``, ``models/mamba2.py``);
 their wrappers differentiate by recompute through the reference's own
-lax-scan arithmetic (``kernels/_recompute.py``).  Prefill and decode run
-without autograd.  Decode returns a new cache and never writes into the
-one it was given (it copies each cache leaf it updates once per call), so
-a caller may keep the old one, as with the reference's immutable arrays.
+lax-scan arithmetic (``kernels/_recompute.py``).  The moe layer is
+``models/moe.py``'s sort-based dispatch, over chunks of
+``flags.moe_seq_chunk`` positions as in the reference.  Prefill and decode
+run without autograd.  Decode writes the token's k / v (and a hybrid's
+window entries) into the cache it was given, in place, and returns the
+other state leaves as new tensors (see ``make_decode_fn``).
 
 Single device: the reference's sharding context (``ShardCtx``) has no
-counterpart yet, and ``ctx`` must be ``None``.  The moe, vlm and audio
-families are not ported yet (ROADMAP queue A, item 9).
+counterpart yet, and ``ctx`` must be ``None`` (ROADMAP queue A item 12,
+which also brings the reference's ``moe_mode`` with its expert-parallel
+dispatch).
 """
 from __future__ import annotations
 
@@ -40,25 +46,28 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch._tree import tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers, mamba2, rwkv6
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import AttnSpec, attention, decode_attention
 
 
 @dataclasses.dataclass(frozen=True)
 class RunFlags:
-    """The reference's run-time knobs that the ported paths read (its MoE
-    and sharding knobs come with those items; remat is always of whole
-    layers, the reference's ``remat_policy="full"``)."""
+    """The reference's run-time knobs that the ported paths read (its
+    sharding knobs come with ROADMAP queue A item 12; remat is always of
+    whole layers, the reference's ``remat_policy="full"``)."""
     attn_impl: str = "chunked"          # naive | chunked | pallas
     q_chunk: int = 512
     kv_chunk: int = 512
     skip_masked_tiles: bool = False     # causal tile skipping (chunked)
     microbatches: int = 1               # grad-accumulation microbatches
     remat: bool = True
+    moe_seq_chunk: int = 2048           # chunk S for the MoE dispatch
+                                        # (0 = no chunking)
     compute_dtype: str = "bfloat16"     # bfloat16 | float32 (oracle mode)
     wkv_chunk: int = 16                 # RWKV WKV chunk length
 
 
-_FAMILIES = ("dense", "ssm", "hybrid")
+_FAMILIES = ("dense", "audio", "moe", "vlm", "hybrid", "ssm")
 
 
 def _check(cfg: ModelConfig, ctx: Any = None) -> None:
@@ -66,12 +75,8 @@ def _check(cfg: ModelConfig, ctx: Any = None) -> None:
         raise NotImplementedError(
             "the port runs on one device: ctx (a sharding context) must be "
             "None until the multi-device item of ROADMAP queue A item 12")
-    if cfg.family not in _FAMILIES or cfg.moe is not None \
-            or cfg.frontend != "tokens":
-        raise NotImplementedError(
-            f"the port runs the dense, ssm and hybrid families; family "
-            f"{cfg.family!r} (arch {cfg.arch}) waits for ROADMAP queue A "
-            f"item 9")
+    if cfg.family not in _FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r} (arch {cfg.arch})")
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -116,17 +121,44 @@ def init_params(cfg: ModelConfig, gen: Optional[torch.Generator],
     dev = gen.device if gen is not None else None
     ones = lambda *shape: torch.ones(shape, dtype=torch.float32, device=dev)
     params: dict = {"final_norm": ones(d)}
-    params["embed"] = layers.embed_init(gen, Vp, d, dtype)
-    if not cfg.tie_embeddings:
+    if cfg.frontend != "frames":
+        params["embed"] = layers.embed_init(gen, Vp, d, dtype)
+    if not cfg.tie_embeddings or cfg.frontend == "frames":
         params["lm_head"] = layers.dense_init(gen, d, Vp, dtype)
     L = cfg.n_layers
-    if cfg.family == "dense":
-        params["blocks"] = {
+    if cfg.family in ("dense", "audio", "moe"):
+        blocks = {
             "attn": _attn_init(gen, cfg, dtype, pre=(L,)),
             "ln1": ones(L, d),
             "ln2": ones(L, d),
+        }
+        if cfg.moe is not None:
+            blocks["moe"] = moe_lib.moe_init(gen, cfg, L, dtype)
+        else:
+            blocks["mlp"] = layers.mlp_init(gen, d, cfg.d_ff, cfg.mlp_type,
+                                            dtype, shape_prefix=(L,))
+        params["blocks"] = blocks
+    elif cfg.family == "vlm":
+        n_cross = L // cfg.cross_attn_period
+        per = cfg.cross_attn_period - 1
+        assert n_cross * cfg.cross_attn_period == L
+        zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32,
+                                           device=dev)
+        params["blocks"] = {
+            "attn": _attn_init(gen, cfg, dtype, pre=(n_cross, per)),
             "mlp": layers.mlp_init(gen, d, cfg.d_ff, cfg.mlp_type, dtype,
-                                   shape_prefix=(L,)),
+                                   shape_prefix=(n_cross, per)),
+            "ln1": ones(n_cross, per, d),
+            "ln2": ones(n_cross, per, d),
+            "cross": {
+                **_attn_init(gen, cfg, dtype, pre=(n_cross,)),
+                "ln_q": ones(n_cross, d),
+                "gate": zeros(n_cross),
+                "mlp": layers.mlp_init(gen, d, cfg.d_ff, cfg.mlp_type, dtype,
+                                       shape_prefix=(n_cross,)),
+                "ln2": ones(n_cross, d),
+                "gate_mlp": zeros(n_cross),
+            },
         }
     elif cfg.family == "hybrid":
         n_super = L // cfg.attn_period
@@ -169,7 +201,7 @@ def lm_logits(cfg: ModelConfig, params, x: torch.Tensor,
     embedding take part in the softmax, as in the reference."""
     _check(cfg, ctx)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    if cfg.tie_embeddings:
+    if cfg.tie_embeddings and cfg.frontend != "frames":
         return x @ params["embed"].t().to(x.dtype)
     return x @ params["lm_head"].to(x.dtype)
 
@@ -221,9 +253,42 @@ def mlp_block(cfg, w, ln, x):
     return x + layers.mlp_apply(w, h, cfg.mlp_type)
 
 
+def moe_block(cfg, flags: RunFlags, ctx, w_moe, ln, x):
+    """The moe layer over x (B, S, d): the dispatch runs over chunks of
+    ``flags.moe_seq_chunk`` positions (all B rows of a chunk together)
+    where that divides S, and the aux loss is their mean.  Returns
+    (x + y, aux)."""
+    _check(cfg, ctx)
+    B, S, d = x.shape
+    h = layers.rms_norm(x, ln, cfg.norm_eps)
+    ch = flags.moe_seq_chunk
+    if ch and S > ch and S % ch == 0:
+        nc = S // ch
+        hc = h.reshape(B, nc, ch, d)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        ys = []
+        for i in range(nc):
+            y, a = moe_lib.moe_apply(w_moe, hc[:, i].reshape(B * ch, d), cfg)
+            aux = aux + a
+            ys.append(y.reshape(B, ch, d))
+        y = torch.stack(ys, dim=1).reshape(B, S, d)
+        aux = aux / nc
+    else:
+        y, aux = moe_lib.moe_apply(w_moe, h.reshape(B * S, d), cfg)
+        y = y.reshape(B, S, d)
+    return x + y, aux
+
+
 def _layer(cfg, flags, pos, x, wl):
+    """One attention layer and its mlp or moe -> (x, aux or None)."""
     x = attn_block(cfg, flags, None, wl["attn"], wl["ln1"], x, pos)
-    return mlp_block(cfg, wl["mlp"], wl["ln2"], x)
+    if "moe" in wl:
+        return moe_block(cfg, flags, None, wl["moe"], wl["ln2"], x)
+    return mlp_block(cfg, wl["mlp"], wl["ln2"], x), None
+
+
+def _add_aux(aux, a):
+    return aux if a is None else aux + a
 
 
 def _unstack(tree, L: int):
@@ -239,22 +304,85 @@ def _unstack(tree, L: int):
 # ---------------------------------------------------------------------------
 
 
-def _forward_dense(cfg, flags, bl, x, pos, collect_cache):
+def _forward_dense(cfg, flags, bl, x, pos, aux, collect_cache):
+    """dense, audio and moe: one attention layer and its mlp or moe a
+    layer."""
     kvs = []
     for wl in _unstack(bl, cfg.n_layers):
         if collect_cache:
             x, kv = attn_block(cfg, flags, None, wl["attn"], wl["ln1"], x,
                                pos, return_kv=True)
-            x = mlp_block(cfg, wl["mlp"], wl["ln2"], x)
+            if "moe" in wl:
+                x, a = moe_block(cfg, flags, None, wl["moe"], wl["ln2"], x)
+                aux = aux + a
+            else:
+                x = mlp_block(cfg, wl["mlp"], wl["ln2"], x)
             kvs.append(kv)
-        elif flags.remat:
-            x = checkpoint(_layer, cfg, flags, pos, x, wl, use_reentrant=False)
+            continue
+        if flags.remat:
+            x, a = checkpoint(_layer, cfg, flags, pos, x, wl,
+                              use_reentrant=False)
         else:
-            x = _layer(cfg, flags, pos, x, wl)
+            x, a = _layer(cfg, flags, pos, x, wl)
+        aux = _add_aux(aux, a)
+    if not collect_cache:
+        return x, aux, None
+    return x, aux, {"k": torch.stack([k for k, _ in kvs]),    # (L,B,S,KH,hd)
+                    "v": torch.stack([v for _, v in kvs])}
+
+
+def _cross_block(cfg, flags, cw, x, pos, patches, ppos):
+    """The vlm's gated cross attention over the patches (non-causal) and
+    its gated mlp -> (x, (k, v) of the patches)."""
+    B, S, _ = x.shape
+    M = patches.shape[1]
+    h = layers.rms_norm(x, cw["ln_q"], cfg.norm_eps)
+    q = (h @ cw["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    k = (patches @ cw["wk"]).reshape(B, M, cfg.n_kv_heads, cfg.head_dim)
+    v = (patches @ cw["wv"]).reshape(B, M, cfg.n_kv_heads, cfg.head_dim)
+    spec = AttnSpec(causal=False, q_chunk=flags.q_chunk,
+                    kv_chunk=flags.kv_chunk)
+    o = attention(q, k, v, impl=flags.attn_impl, spec=spec, q_pos=pos,
+                  kv_pos=ppos)
+    x = x + torch.tanh(cw["gate"]).to(x.dtype) * (
+        o.reshape(B, S, cfg.d_q) @ cw["wo"])
+    h = layers.rms_norm(x, cw["ln2"], cfg.norm_eps)
+    x = x + torch.tanh(cw["gate_mlp"]).to(x.dtype) * \
+        layers.mlp_apply(cw["mlp"], h, cfg.mlp_type)
+    return x, (k, v)
+
+
+def _forward_vlm(cfg, flags, bl, x, pos, patches, collect_cache):
+    """Each super-layer: ``per`` self-attention layers, then the gated
+    cross attention over the patch embeddings."""
+    n_cross, per = bl["ln1"].shape[:2]
+    M = patches.shape[1]
+    ppos = torch.arange(M, dtype=torch.int32,
+                        device=patches.device).expand(patches.shape[0], M)
+    self_w = {n: bl[n] for n in ("attn", "mlp", "ln1", "ln2")}
+    kvs, cross = [], []
+    for ci in range(n_cross):
+        for pi in range(per):
+            wl = _at(self_w, ci, pi)
+            if collect_cache:
+                x, kv = attn_block(cfg, flags, None, wl["attn"], wl["ln1"], x,
+                                   pos, return_kv=True)
+                x = mlp_block(cfg, wl["mlp"], wl["ln2"], x)
+                kvs.append(kv)
+            elif flags.remat:
+                x, _ = checkpoint(_layer, cfg, flags, pos, x, wl,
+                                  use_reentrant=False)
+            else:
+                x, _ = _layer(cfg, flags, pos, x, wl)
+        x, ckv = _cross_block(cfg, flags, _at(bl["cross"], ci), x, pos,
+                              patches, ppos)
+        cross.append(ckv)
     if not collect_cache:
         return x, None
-    return x, {"k": torch.stack([k for k, _ in kvs]),         # (L,B,S,KH,hd)
-               "v": torch.stack([v for _, v in kvs])}
+    return x, {"k": torch.stack([k for k, _ in kvs]),     # (n_self,B,S,KH,hd)
+               "v": torch.stack([v for _, v in kvs]),
+               "cross_k": torch.stack([k for k, _ in cross]),
+               "cross_v": torch.stack([v for _, v in cross])}
 
 
 def _forward_hybrid(cfg, flags, bl, x, pos, collect_cache):
@@ -318,15 +446,26 @@ def forward(cfg: ModelConfig, params, batch: dict, flags: RunFlags,
     """Returns (hidden (B,S,d), aux_losses, cache_parts or None)."""
     _check(cfg, ctx)
     cdt = getattr(torch, flags.compute_dtype)
-    ids = batch["tokens"]
-    B, S = ids.shape
-    pos = torch.arange(S, dtype=torch.int32,
-                       device=ids.device).expand(B, S)
-    x = embed_lookup(cfg, params, ids).to(cdt)
+    if cfg.frontend == "frames":
+        x = batch["frames"].to(cdt)
+        B, S = x.shape[:2]
+        pos = torch.arange(S, dtype=torch.int32,
+                           device=x.device).expand(B, S)
+        x = x + layers.sinusoidal_positions(pos, cfg.d_model).to(x.dtype)
+    else:
+        ids = batch["tokens"]
+        B, S = ids.shape
+        pos = torch.arange(S, dtype=torch.int32,
+                           device=ids.device).expand(B, S)
+        x = embed_lookup(cfg, params, ids).to(cdt)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     bl = params["blocks"]
-    if cfg.family == "dense":
-        x, cache = _forward_dense(cfg, flags, bl, x, pos, collect_cache)
+    if cfg.family in ("dense", "audio", "moe"):
+        x, aux, cache = _forward_dense(cfg, flags, bl, x, pos, aux,
+                                       collect_cache)
+    elif cfg.family == "vlm":
+        x, cache = _forward_vlm(cfg, flags, bl, x, pos,
+                                batch["patches"].to(cdt), collect_cache)
     elif cfg.family == "hybrid":
         x, cache = _forward_hybrid(cfg, flags, bl, x, pos, collect_cache)
     else:
@@ -372,7 +511,7 @@ def _grow_cache(cfg, parts, B, S, max_len):
     """Pad prefill-collected cache parts out to max_len and add bookkeeping."""
     out = dict(parts or {})
     dev = next(iter(out.values())).device if out else None
-    if "k" in out:                                            # dense
+    if "k" in out:                                    # dense/moe/vlm/audio
         pad = max_len - S
         assert pad >= 0, (S, max_len)
         out["k"] = F.pad(out["k"], (0, 0, 0, 0, 0, pad))
@@ -402,12 +541,25 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int, dtype=torch.bfloat16,
     z = lambda shape, dt=dtype: torch.zeros(shape, dtype=dt, device=device)
     i32 = torch.int32
     pos = z((B,), i32)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "audio", "moe"):
         L, KH, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
         return {
             "k": z((L, B, max_len, KH, hd)),
             "v": z((L, B, max_len, KH, hd)),
             "kv_pos": torch.full((B, max_len), -1, dtype=i32, device=device),
+            "pos": pos,
+        }
+    if cfg.family == "vlm":
+        L, KH, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+        n_cross = L // cfg.cross_attn_period
+        n_self = L - n_cross
+        M = cfg.n_media_tokens
+        return {
+            "k": z((n_self, B, max_len, KH, hd)),
+            "v": z((n_self, B, max_len, KH, hd)),
+            "kv_pos": torch.full((B, max_len), -1, dtype=i32, device=device),
+            "cross_k": z((n_cross, B, M, KH, hd)),
+            "cross_v": z((n_cross, B, M, KH, hd)),
             "pos": pos,
         }
     if cfg.family == "hybrid":
@@ -477,9 +629,10 @@ def cache_insert(cache: dict, single: dict, slot: int) -> dict:
 
 def make_decode_fn(cfg: ModelConfig, flags: RunFlags, ctx: Any = None):
     """Returns fn(params, cache, tokens (B,)) -> (logits (B,Vp), cache).
-    The token's k/v (dense) or window entries (hybrid) are written into the
-    given cache in place; the per-layer states are new tensors, as in the
-    reference (they take the compute type)."""
+    The token's k/v (dense, moe, vlm) or window entries (hybrid) are
+    written into the given cache in place; the per-layer states are new
+    tensors, as in the reference (they take the compute type).  The vlm's
+    cross k / v are read, never written."""
     _check(cfg, ctx)
 
     @torch.no_grad()
@@ -494,14 +647,46 @@ def make_decode_fn(cfg: ModelConfig, flags: RunFlags, ctx: Any = None):
         barange = torch.arange(B, device=tokens.device)
         pos_l = pos.long()
 
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "audio", "moe"):
             kc, vc = cache["k"], cache["v"]                   # (L,B,S,KH,hd)
             kv_pos = cache["kv_pos"]
             _set_rows(kv_pos, barange, pos_l, pos)
             for li, wl in enumerate(_unstack(bl, cfg.n_layers)):
                 x = _decode_attn_layer(cfg, wl, x, qpos, kc[li], vc[li],
                                        kv_pos, pos_l, barange)
-                x = mlp_block(cfg, wl["mlp"], wl["ln2"], x)
+                if "moe" in wl:
+                    x, _ = moe_block(cfg, flags, ctx, wl["moe"], wl["ln2"], x)
+                else:
+                    x = mlp_block(cfg, wl["mlp"], wl["ln2"], x)
+            new_cache = dict(cache, pos=pos + 1)
+
+        elif cfg.family == "vlm":
+            kc, vc = cache["k"], cache["v"]               # (n_self,B,S,KH,hd)
+            kv_pos = cache["kv_pos"]
+            _set_rows(kv_pos, barange, pos_l, pos)
+            n_cross, per = bl["ln1"].shape[:2]
+            self_w = {n: bl[n] for n in ("attn", "mlp", "ln1", "ln2")}
+            for ci in range(n_cross):
+                for pi in range(per):
+                    wl, li = _at(self_w, ci, pi), ci * per + pi
+                    x = _decode_attn_layer(cfg, wl, x, qpos, kc[li], vc[li],
+                                           kv_pos, pos_l, barange)
+                    x = mlp_block(cfg, wl["mlp"], wl["ln2"], x)
+                cw = _at(bl["cross"], ci)
+                h = layers.rms_norm(x, cw["ln_q"], cfg.norm_eps)
+                q = (h @ cw["wq"]).reshape(B, 1, cfg.n_heads, cfg.head_dim)
+                ck, cv = cache["cross_k"][ci], cache["cross_v"][ci]
+                M = ck.shape[1]
+                # non-causal cross attention: q_pos = kv_pos = 0 everywhere
+                zero = lambda n: torch.zeros((B, n), dtype=torch.int32,
+                                             device=x.device)
+                o = decode_attention(q, ck, cv, q_pos=zero(1),
+                                     kv_pos=zero(M))
+                x = x + torch.tanh(cw["gate"]).to(x.dtype) * (
+                    o.reshape(B, 1, cfg.d_q) @ cw["wo"])
+                h = layers.rms_norm(x, cw["ln2"], cfg.norm_eps)
+                x = x + torch.tanh(cw["gate_mlp"]).to(x.dtype) * \
+                    layers.mlp_apply(cw["mlp"], h, cfg.mlp_type)
             new_cache = dict(cache, pos=pos + 1)
 
         elif cfg.family == "hybrid":

@@ -23,9 +23,8 @@ observable.  This module provides the stimulus side:
   deterministic clock, so the emitted event sequence is itself
   deterministic.
 
-Works against a ``ServingEngine`` in continuous-batching mode (it exposes
-``clock`` / ``advance_clock``; the reference's cluster engine waits for
-ROADMAP queue A item 10).
+Works against a ``ServingEngine`` or ``ClusterServingEngine`` in
+continuous-batching mode (both expose ``clock`` / ``advance_clock``).
 """
 from __future__ import annotations
 

@@ -12,14 +12,16 @@ The control plane (CSR map, scheduler, KV paging, counters, transaction
 log) is the reference's, line for line: its log digest and CSR log are the
 same for the same request stream.  Prefill and decode are plain callables
 (``make_prefill_fn`` / ``make_decode_fn``) where the reference jits them;
-its ``jit_fns`` sharing waits for the cluster engine (ROADMAP queue A item
-10).  ``profiler()`` and ``get_state`` / ``set_state`` serve the
-data-movement profiler and time-travel replay.  The cache and the parameters live on
+``jit_fns`` shares one pair of them across the device-local engines of a
+``ClusterServingEngine``, as the reference shares its executables.
+``profiler()`` and ``get_state`` / ``set_state`` serve the data-movement
+profiler and time-travel replay.  The cache and the parameters live on
 ``device`` (default ``"cuda"``), and the argmax tokens come back to the
-host as in the reference.  For the ssm
-and hybrid families the prefill runs the WKV-6 / SSD scan kernels; as in
-the reference, a prompt of those families should be a multiple of
-``prompt_pad`` long, or the left padding perturbs the state.
+host as in the reference.  For the ssm and hybrid families the prefill
+runs the WKV-6 / SSD scan kernels; as in the reference, a prompt of those
+families should be a multiple of ``prompt_pad`` long, or the left padding
+perturbs the state.  A vlm prefill gets zero patch embeddings
+(``_batchify``), as in the reference.
 """
 from __future__ import annotations
 
@@ -82,6 +84,7 @@ class ServingEngine:
                  kv_page_size: int = 16,
                  kv_leak_every: int = 0,
                  step_cycles: float = 64.0,
+                 jit_fns=None,
                  device: Union[str, torch.device] = "cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -108,9 +111,17 @@ class ServingEngine:
         # prefill) on the engine clock, in cycles
         self.step_cycles = float(step_cycles)
 
-        self._prefill = make_prefill_fn(cfg, flags, ctx, max_len)
-        self._decode = make_decode_fn(cfg, flags, ctx)
+        if jit_fns is not None:
+            self._prefill, self._decode = jit_fns
+        else:
+            self._prefill = make_prefill_fn(cfg, flags, ctx, max_len)
+            self._decode = make_decode_fn(cfg, flags, ctx)
         self.reset(fault_plan=fault_plan)
+
+    @property
+    def jit_fns(self):
+        """The shareable (prefill, decode) callable pair."""
+        return (self._prefill, self._decode)
 
     def reset(self, fault_plan=None, **overrides) -> None:
         """Restore fresh-engine state (cache, slots, queues, control plane,
@@ -276,7 +287,8 @@ class ServingEngine:
         toks = np.zeros((1, pl), np.int32)
         toks[0, pad_n:] = req.prompt
         logits, single = self._prefill(
-            self.params, {"tokens": torch.from_numpy(toks).to(self.device)})
+            self.params,
+            self._batchify({"tokens": torch.from_numpy(toks).to(self.device)}))
         self.cache = cache_insert(self.cache, single, slot)
         if pad_n and "kv_pos" in self.cache:
             self.cache["kv_pos"][slot, :pad_n] = -1
@@ -375,6 +387,15 @@ class ServingEngine:
         """Fig. 8 stall statistics of the serving DMA traffic (None when
         the engine runs congestion-free)."""
         return self.mem.congestion_stats()
+
+    def _batchify(self, batch):
+        """A vlm prefill's image input: zero patch embeddings, as in the
+        reference (its vision frontend is a stub)."""
+        if self.cfg.frontend == "tokens+patches":
+            batch["patches"] = torch.zeros(
+                (1, self.cfg.n_media_tokens, self.cfg.d_model),
+                dtype=torch.float32, device=self.device)
+        return batch
 
     def counter_banks(self):
         """The serving-lifecycle bank plus the DMA bridge's link bank."""

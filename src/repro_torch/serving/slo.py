@@ -1,6 +1,6 @@
 """Per-run latency-SLO report for open-loop serving (modeled cycles) —
-the port of ``repro.serving.slo`` (value-free; one engine, the cluster
-engine waits for ROADMAP queue A item 6).
+the port of ``repro.serving.slo`` (value-free; one engine or a
+``ClusterServingEngine``).
 
 After an open-loop run (``serving/arrivals.py``) every completed request
 carries its lifecycle timestamps on the engine's modeled clock:
@@ -91,9 +91,9 @@ class SLOReport:
     @classmethod
     def from_run(cls, trace: Any, target: Any,
                  label: str = "serving") -> "SLOReport":
-        """Collect the report from a drained engine plus the arrival
-        trace that drove it (the trace carries arrival times; the engine
-        carries the admission/first/done stamps)."""
+        """Collect the report from a drained engine or cluster plus the
+        arrival trace that drove it (the trace carries arrival times; the
+        engine carries the admission/first/done stamps)."""
         t_arrival = {a.rid: a.time for a in trace.arrivals}
         stats = []
         for rid, req in sorted(target.requests.items()):
@@ -103,10 +103,13 @@ class SLOReport:
                 rid, t_arrival.get(rid, req.t_submit), req.t_submit,
                 req.t_admit, req.t_first, req.t_done,
                 tuple(int(t) for t in req.out_tokens)))
-        deferrals = (target.kv_pool.deferrals
-                     if target.kv_pool is not None else 0)
-        return cls(stats, float(target.clock), deferrals,
-                   len(target.mem.log.violations), label=label)
+        engines = getattr(target, "engines", None) or [target]
+        deferrals = sum(e.kv_pool.deferrals for e in engines
+                        if e.kv_pool is not None)
+        n_violations = len(target.violations) if hasattr(
+            target, "violations") else len(target.mem.log.violations)
+        return cls(stats, float(target.clock), deferrals, n_violations,
+                   label=label)
 
     # ------------------------------------------------------------- metrics
     @property

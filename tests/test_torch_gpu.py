@@ -101,6 +101,43 @@ def test_flash_fwd_kernel_on_card(card, B, H, KH, S, D, causal, window, dt):
     assert float((lse - p_lse).abs().max()) < 1e-4
 
 
+@pytest.mark.parametrize("B,H,KH,Sq,Skv,D,causal,bq,bk", [
+    (1, 16, 16, 1536, 1536, 128, True, 512, 512),     # moonshot-v1-16b-a3b
+    (1, 32, 8, 1536, 1536, 128, True, 512, 512),      # the vlm's self attn
+    (1, 32, 8, 1536, 1600, 128, False, 512, 400),     # its cross attention
+    (2, 16, 16, 1536, 1536, 80, False, 512, 512),     # hubert-xlarge
+    (1, 4, 2, 96, 40, 128, False, 32, 40),            # Skv < Sq, ragged
+])
+def test_flash_fwd_bf16_on_the_moe_vlm_audio_shapes(card, B, H, KH, Sq, Skv,
+                                                    D, causal, bq, bk):
+    """The bf16 tensor-core body at head dim 128, non-causal with
+    Sq != Skv (kv lengths no multiple of its tiles), and at head dim 80
+    non-causal: within 3e-2 of the plain version and the oracle, and
+    element by element within one bf16 ulp of |plain out| and of
+    sum_j p_j |v_j| (the plain version on |v|; p rounded to bf16 moves out
+    by at most half that); lse within 1e-4 * max(1, |lse|)."""
+    rng = np.random.default_rng(Sq + Skv + D)
+    mk = lambda h, n: torch.from_numpy(rng.normal(size=(B, h, n, D)).astype(
+        np.float32)).to(card, torch.bfloat16)
+    q, k, v = mk(H, Sq), mk(KH, Skv), mk(KH, Skv)
+    kw = dict(causal=causal, window=0, bq=bq, bk=bk)
+    before = K.launches
+    out, lse = K.flash_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert K.launches == before + 1
+    assert out.shape == q.shape and lse.shape == (B, H, Sq)
+    p_out, p_lse = K.flash_fwd_plain(q, k, v, **kw)
+    ref = R.attention_ref(q, k, v, causal=causal).float()
+    assert float((out.float() - ref).abs().max()) < 3e-2
+    assert float((out.float() - p_out.float()).abs().max()) < 3e-2
+    tol = 2.0 ** -7 * (p_out.float().abs()
+                       + K.flash_fwd_plain(q, k, v.abs(), **kw)[0].float())
+    assert bool(((out.float() - p_out.float()).abs() <= tol).all())
+    assert bool(((out.float() - ref).abs() <= tol).all())
+    assert float((lse - p_lse).abs().max()) < \
+        1e-4 * max(1.0, float(p_lse.abs().max()))
+
+
 @pytest.mark.parametrize("M,N,K,tile", [
     (100, 300, 250, 50),        # K no multiple of 8, M, N ragged for 128x128
     (64, 48, 4096, 16),         # long K, one C tile

@@ -250,19 +250,34 @@ def test_pallas_attention_off_the_512_row_grid(S, window):
                                   "moonshot-v1-16b-a3b", "hubert-xlarge",
                                   "llama-3.2-vision-11b"])
 def test_families_not_ported_raise_naming_the_roadmap(arch):
-    """The ssm and hybrid families are ported whole: parameters and a loss
-    function build (their training is held against the reference in
-    tests/test_torch_ssm_train.py); the other families are not ported at
-    all and raise, naming the roadmap."""
+    """Every family is ported now: parameters and a loss function build
+    for the ssm and hybrid families (their training is held against the
+    reference in tests/test_torch_ssm_train.py) and for the moe, audio and
+    vlm families (tests/test_torch_families.py), and the loss runs; what
+    the roadmap still names, a sharding context, is refused
+    (test_sharding_context_refused_naming_item_12)."""
     cfg = smoke(get_config(arch))
-    if cfg.family in ("ssm", "hybrid"):
-        tf.init_params(cfg, None)
-        assert callable(tf.make_loss_fn(cfg, tf.RunFlags()))
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tf.init_params(cfg, None)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tf.make_loss_fn(cfg, tf.RunFlags())
+    shapes = tf.init_params(cfg, None)
+    assert leaves(shapes)
+    params = tf.init_params(cfg, torch.Generator().manual_seed(0))
+    loss_fn = tf.make_loss_fn(cfg, tf.RunFlags(compute_dtype="float32"))
+    assert callable(loss_fn)
+    batch = inputs.make_train_batch(cfg, 1, 16,
+                                    torch.Generator().manual_seed(1))
+    loss, aux = loss_fn(params, batch)
+    assert torch.isfinite(loss) and torch.isfinite(aux["aux"])
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "hubert-xlarge",
+                                  "llama-3.2-vision-11b"])
+def test_sharding_context_refused_naming_item_12(arch):
+    cfg = smoke(get_config(arch))
+    for build in (lambda: tf.make_loss_fn(cfg, tf.RunFlags(), ctx=object()),
+                  lambda: tf.make_prefill_fn(cfg, tf.RunFlags(), object(), 32),
+                  lambda: tf.make_decode_fn(cfg, tf.RunFlags(), object())):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP queue A item 12"):
+            build()
 
 
 def test_sharding_context_is_refused():
