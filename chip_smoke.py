@@ -42,6 +42,13 @@ card, and drives the port's paths:
   * profile — the golden programs' Perfetto files on the card equal to
     the CPU's byte for byte, the 4-device matmul cell's fabric profile
     per port and per ring leg, and the storm's serving profile;
+  * campaign — a run-farm campaign (every golden trace, sweep units at
+    4096 / 1024 / 64, the docs' register-protocol fuzz campaign, bridge
+    fuzz units, open-loop serving units at 1 and 2 devices) in process,
+    on a 2-worker spawned pool, on a pool whose worker is SIGKILL'd, and
+    resumed from its store: the same digests, coverage and counters in
+    every lane, the docs' digest reproduced, a planted bug shrunk to one
+    launch;
   * training — llama3.2-1b at full width (16 layers, seq 2048, batch 2,
     bf16 compute, ``attn_impl="pallas"``): one loss + backward with the
     kernels against the naive attention, then three ``Trainer`` steps with
@@ -142,6 +149,8 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import transformer as tf
 from repro_torch.models.transformer import RunFlags, make_loss_fn
 from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.runfarm import (CampaignManager, ResultStore, fuzz_units,
+                                 golden_units, serving_units, sweep_units)
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
 from repro_torch.serving import Request, ServingEngine
 
@@ -302,7 +311,8 @@ def phase_build() -> None:
 # a longer K, where the tensor core's accumulation error shows most; then
 # the fuzzer's bridge-layer launches (32, 48, 64 cubed at tile 16), one
 # device's row shard of the 4-device and of the 2-device matmul fabric
-# cells, and the Fig. 5 batched lane's cells (64-160 cubed at tile 32).
+# cells, the Fig. 5 batched lane's cells (64-160 cubed at tile 32), and the
+# run-farm campaign's 1024 sweep unit.
 MM_SHAPES = [
     (256, 128, 128, 64, torch.float32),
     (128, 256, 512, 64, torch.bfloat16),
@@ -321,12 +331,16 @@ MM_SHAPES = [
     (96, 96, 96, 32, torch.float32),
     (128, 128, 128, 32, torch.float32),
     (160, 160, 160, 32, torch.float32),
+    (1024, 1024, 1024, 32, torch.float32),
 ]
 MM_MAIN = 4          # index of the shape coverify_matmul runs
 MM_FUZZ = (8, 9, 10)  # the fuzzer's bridge-layer launches
 MM_SHARD = 11        # one device's launch of the 4-device matmul fabric cell
 MM_SHARD2 = 12       # one device's launch of the 2-device sweep cell
 MM_FIG5_SWEEP = (13, 14, 15, 16)   # the Fig. 5 batched lane's cells
+# the campaign's 1024 sweep unit (a sweep unit's table passes tile 32 at
+# every size; the kernel's own tiling ignores it, the plain version not)
+MM_CAMPAIGN = 17
 # the fp32 body keeps 3xTF32 only while every fp32 row is within half its
 # gate (the rule that chose hi + lo for the attention backward)
 SPLIT_RULE = 0.5
@@ -1844,6 +1858,145 @@ def phase_profile(card: str, eng) -> int:
     return launches
 
 
+# ------------------------------------------------------------- phase 6f
+CAMPAIGN_SEED = 42
+# the docs' register-protocol campaign (docs/runfarm.md): seed 42, 600
+# scenarios in batches of 150, 3 generations; its final digest
+CAMPAIGN_DOCS = dict(seed=42, n_scenarios=600, batch=150)
+CAMPAIGN_DOCS_DIGEST = "88fda7c259f1e6e7"
+CAMPAIGN_SWEEP = [dict(size=4096, tile=128), dict(size=1024, tile=128),
+                  dict(size=64, tile=16)]
+CAMPAIGN_BRIDGE = dict(n_scenarios=6, batch=3, layers=("bridge",),
+                       bridge_ops=[2, 4])
+CAMPAIGN_SERVING = dict(
+    traces=[{"kind": "bursty", "params": {"n_requests": 8, "burst_size": 4,
+                                          "gap_between": 400.0}}],
+    pools=[{"kv_pages": 3, "kv_page_size": 8}], devices=(1, 2))
+CAMPAIGN_BUG = dict(seed=5, n_scenarios=2, batch=2, layers=("bridge",),
+                    bridge_ops=[2, 4], mm_bug=(1, 2, 1.0))
+CAMPAIGN_DIR = ROOT / "build" / "campaign"
+
+
+def campaign_units() -> list:
+    """Generation 0: the docs' register units first (uids g00/u00000-3,
+    so their lineage is the docs campaign's), then every golden trace,
+    the sweep units, the bridge fuzz units and the serving units."""
+    units = fuzz_units(**CAMPAIGN_DOCS)
+    units += golden_units(list(goldens.PROGRAMS), start_index=len(units))
+    units += sweep_units(CAMPAIGN_SEED, CAMPAIGN_SWEEP, configs_per_unit=1,
+                         start_index=len(units))
+    units += fuzz_units(CAMPAIGN_SEED, start_index=len(units),
+                        **CAMPAIGN_BRIDGE)
+    units += serving_units(CAMPAIGN_SEED, start_index=len(units),
+                           **CAMPAIGN_SERVING)
+    return units
+
+
+def run_campaign(lane: str, units, workers: int, **kw):
+    """One lane of the campaign on the card; ``max_parents=1`` mutates only
+    the first productive unit in uid order (g00/u00000, as in the docs
+    campaign), so the farm re-runs no sweep or serving unit as a child."""
+    mgr = CampaignManager(CAMPAIGN_DIR / lane, units, seed=CAMPAIGN_SEED,
+                          workers=workers, generations=3,
+                          children_per_parent=2, max_parents=1,
+                          device="cuda", **kw)
+    return mgr, mgr.run()
+
+
+def campaign_view(res) -> tuple:
+    """What every lane must reproduce: the final digest, the per-unit
+    digests, the merged coverage and counters, ``deterministic_view``."""
+    return (res.digest, {u: res.records[u]["digest"] for u in res.uids},
+            res.coverage.counts, res.counters, res.report["deterministic"])
+
+
+def phase_campaign(card: str) -> int:
+    """The run farm (``repro_torch.runfarm``) on the card, every unit with
+    ``device="cuda"``: the campaign in process (B1's launches counted
+    there), on a 2-worker spawned pool, on a pool whose worker 0 SIGKILLs
+    itself before its second unit, and resumed on the pool's directory;
+    then the planted bug in process.  Workers load the kernels that phase
+    2 built.  Returns B1's launches in the in-process lane."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(CAMPAIGN_DIR, ignore_errors=True)
+    units = campaign_units()
+    docs_uids = [u.uid for u in units[:4]] + ["g01/u00000", "g01/u00001"]
+    out = {"phase": "campaign", "card": card, "units_gen0": len(units),
+           "kinds": {k: sum(u.kind == k for u in units)
+                     for k in ("golden", "sweep", "fuzz_batch",
+                               "serving")},
+           "lanes": {}}
+    lanes = {}
+    MMK.launches = 0
+    lanes["in_process"] = run_campaign("w0", units, 0)
+    launches = MMK.launches
+    lanes["pool"] = run_campaign("w2", units, 2)
+    lanes["sigkill"] = run_campaign("kill", units, 2,
+                                    kill_worker_after={0: 1})
+    lanes["resume"] = run_campaign("w2", units, 2)
+    want = campaign_view(lanes["in_process"][1])
+    for lane, (mgr, res) in lanes.items():
+        timing = res.report["timing"]
+        out["lanes"][lane] = {
+            "workers": timing["workers"],
+            "wall_s": timing["wall_seconds"],
+            "scenarios_per_s": timing["scenarios_per_sec"],
+            "pool_utilization": timing["pool_utilization"],
+            "busy_s": timing["busy_seconds_total"],
+            "spawn_to_ready_s": mgr.ready_seconds,
+            "respawned": timing["workers_respawned"],
+            "resumed": timing["units_resumed_from_store"],
+            "units": len(res.uids),
+            "scenarios": res.report["deterministic"]["scenarios"],
+            "digest": res.digest[:16],
+            "docs_digest": ResultStore.final_digest(
+                res.records, docs_uids)[:16],
+            "passed": res.passed,
+            "same_as_in_process": campaign_view(res) == want}
+    res0 = lanes["in_process"][1]
+    out["unit_seconds"] = {u: (res0.records[u]["kind"],
+                               res0.records[u]["seconds"])
+                           for u in res0.uids}
+    out["goldens_ok"] = {u: res0.records[u]["ok"] for u in res0.uids
+                         if res0.records[u]["kind"] == "golden"}
+    out["coverage"] = res0.report["deterministic"]["coverage"]
+    out["b1_launches"] = launches
+
+    t = time.perf_counter()
+    bug = CampaignManager(CAMPAIGN_DIR / "bug", fuzz_units(**CAMPAIGN_BUG),
+                          seed=CAMPAIGN_BUG["seed"], device="cuda").run()
+    harvest = [bug.records[u].get("harvest") for u in bug.uids]
+    out["planted_bug"] = {"passed": bug.passed,
+                          "bundles": [b.name for b in bug.bundles],
+                          "harvest": harvest[0], "wall_s":
+                          time.perf_counter() - t}
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    for lane, row in out["lanes"].items():
+        if not (row["passed"] and row["same_as_in_process"]):
+            fail(f"campaign: lane {lane} failed or differs from the "
+                 f"in-process lane: {row}")
+        if row["docs_digest"] != CAMPAIGN_DOCS_DIGEST:
+            fail(f"campaign: lane {lane}: the docs campaign's digest is "
+                 f"{row['docs_digest']}, not {CAMPAIGN_DOCS_DIGEST}")
+    if not all(out["goldens_ok"].values()) or len(out["goldens_ok"]) != 7:
+        fail(f"campaign: golden units not ok: {out['goldens_ok']}")
+    if out["lanes"]["sigkill"]["respawned"] < 1:
+        fail("campaign: the SIGKILL lane respawned no worker")
+    if out["lanes"]["resume"]["resumed"] != len(res0.uids):
+        fail("campaign: the resumed lane re-ran units")
+    h = harvest[0]
+    if bug.passed or not (h and h["layer"] == "bridge"
+                          and h["shrunk_ops"] == 1
+                          and "divergence" in h["failures"][0]):
+        fail(f"campaign: planted bug not caught and shrunk to 1 launch: "
+             f"{out['planted_bug']}")
+    if launches < 1:
+        fail("campaign: the in-process lane never launched B1")
+    shutil.rmtree(CAMPAIGN_DIR, ignore_errors=True)
+    return launches
+
+
 # ------------------------------------------------------------------ phase 7
 LLAMA = dict(arch="llama3.2-1b", seq_len=2048, global_batch=2, steps=3,
              seed=0)
@@ -2888,6 +3041,7 @@ def main() -> int:
     del storm_engine
     gc.collect()                      # the engine's cycles hold its weights
     torch.cuda.empty_cache()
+    campaign_launches = phase_campaign(card)
     train = phase_train_llama(card)
     ssm = phase_train_ssm(card)
     rwkv = phase_serve(card, "rwkv6-7b")
@@ -2899,7 +3053,7 @@ def main() -> int:
     if mm_launches < 1 or fa_launches < 1 or fuzz_launches < 1 or \
             min(fabric.values()) < 1 or min(sweep.values()) < 1 or \
             replay_launches < 1 or profile_launches < 1 or \
-            min(train.values()) < 1 or \
+            campaign_launches < 1 or min(train.values()) < 1 or \
             min(ssm.values()) < 1 or min(rwkv.values()) < 1 or \
             min(zamba.values()) < 1 or min(cluster.values()) < 1 or \
             min(audio.values()) < 1 or min(vlm.values()) < 1 or \
@@ -2907,7 +3061,7 @@ def main() -> int:
         fail(f"main path missed a kernel: matmul={mm_launches} "
              f"flash={fa_launches} fuzz={fuzz_launches} fabric={fabric} "
              f"sweep={sweep} replay={replay_launches} "
-             f"profile={profile_launches} "
+             f"profile={profile_launches} campaign={campaign_launches} "
              f"train={train} train_ssm={ssm} serve_rwkv6={rwkv} "
              f"serve_zamba2={zamba} cluster={cluster} "
              f"encode_audio={audio} serve_vlm={vlm} serve_moe={moe}")
@@ -2922,14 +3076,17 @@ def main() -> int:
                      {"coverify_matmul": mm_launches, "fuzz": fuzz_launches,
                       "fabric": fabric["systolic_matmul"],
                       "sweep": sweep["systolic_matmul"],
-                      "replay": replay_launches, "profile": profile_launches},
+                      "replay": replay_launches, "profile": profile_launches,
+                      "campaign": campaign_launches},
                      {"fuzz": [mm_rows[i] for i in MM_FUZZ],
                       "fabric": mm_rows[MM_SHARD],
                       "sweep": [mm_rows[i] for i in
                                 (MM_MAIN, MM_SHARD2, MM_SHARD,
                                  *MM_FIG5_SWEEP)],
                       "replay": [mm_rows[i] for i in (MM_MAIN, *MM_FUZZ)],
-                      "profile": mm_rows[MM_SHARD]}),
+                      "profile": mm_rows[MM_SHARD],
+                      "campaign": [mm_rows[i] for i in
+                                   (MM_MAIN, MM_CAMPAIGN, *MM_FUZZ)]}),
         kernel_entry("flash_fwd", [src + "flash_fwd.cu",
                                    src + "flash_fwd_tf32_sm90.cuh",
                                    src + "flash_fwd_sm90.cuh",

@@ -68,7 +68,10 @@ def faulty_fuzz(device: Device = "cuda") -> FireBridge:
     scn = fz.scenario(0)
     plan = fz.plan.fork(f"{scn.label}/oracle", scenario=scn.index)
     fb = FireBridge(congestion=fz.congestion, fault_plan=plan)
-    fb.register_op("mm", **fz._matmul_table())
+    # only the oracle runs: a table without the compiled tier, so that no
+    # golden program (a run-farm unit among them) calls ``torch.compile``
+    fb.register_op("mm", **matmul_backends(tile=fz.TILE, device=device,
+                                           jit=False))
     for j, (_, size) in enumerate(scn.ops):
         rng = np.random.default_rng(size * 1009 + j)
         a = rng.normal(size=(size, size)).astype(np.float32)

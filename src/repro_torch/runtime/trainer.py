@@ -6,8 +6,10 @@ The control flow is deliberately firmware-shaped (FireBridge §IV-A): the
 host loop reads/writes a RegisterFile for run control (CTRL/STATUS/STEP/
 RESTARTS), so the register-protocol tests drive the trainer exactly like
 the paper's firmware drives its accelerator.  The reference's mesh and
-sharding context, elastic ``rescale`` and ``int8_ef`` gradient compression
-wait for the multi-device item (ROADMAP queue A item 12).
+sharding context, elastic ``rescale`` and its ``grad_compression`` option
+wait for the multi-device item (ROADMAP queue A item 12): the int8
+error-feedback compression itself is ported (``optim/compress.py``), and
+the option comes with the gradient reduction whose wire it compresses.
 """
 from __future__ import annotations
 

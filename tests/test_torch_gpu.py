@@ -566,3 +566,28 @@ def test_sharded_launch_on_card_bit_identical_to_one_device(card, cell):
         fab = run(n, card)
         assert np.array_equal(fab.outputs()[out], one), n
         assert fab.digest() == run(n, "cpu").digest()
+
+
+def test_campaign_pool_on_card_equals_in_process(card, tmp_path):
+    """A run-farm campaign of sweep units (B1 at 64 and 128, tile 16 and
+    32) and one bridge-layer fuzz unit on the card: a 2-worker spawned
+    pool gives the in-process lane's final digest, per-unit digests and
+    merged coverage (a sweep digest hashes B1's output bytes, so the
+    workers ran the same kernel to the same bits)."""
+    from repro_torch.runfarm import CampaignManager, fuzz_units, sweep_units
+    units = sweep_units(seed=3, configs=[{"size": 64, "tile": 16},
+                                         {"size": 128, "tile": 32}],
+                        configs_per_unit=1) + fuzz_units(
+        seed=5, n_scenarios=3, batch=3, layers=("bridge",),
+        bridge_ops=[2, 4], start_index=2)
+    before = MM.launches
+    seq = CampaignManager(tmp_path / "w0", units, seed=3,
+                          device=card).run()
+    assert MM.launches > before
+    pool = CampaignManager(tmp_path / "w2", units, seed=3, workers=2,
+                           device=card).run()
+    assert seq.passed and pool.passed
+    assert pool.digest == seq.digest
+    assert {u: pool.records[u]["digest"] for u in pool.uids} == \
+        {u: seq.records[u]["digest"] for u in seq.uids}
+    assert pool.coverage.counts == seq.coverage.counts

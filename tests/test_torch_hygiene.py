@@ -1,7 +1,8 @@
-"""The PyTorch port stands alone: it imports neither ``jax`` nor the JAX
-package, imports cleanly on a machine with no JAX, no CUDA compiler and no
-GPU (nothing is built at import time), and refuses to run on the CPU when
-a CUDA device was asked for and there is none."""
+"""The PyTorch port stands alone: neither it nor its examples import
+``jax``, the JAX package or the tests; it imports cleanly on a machine with
+no JAX, no CUDA compiler and no GPU (nothing is built at import time), and
+refuses to run on the CPU when a CUDA device was asked for and there is
+none."""
 import ast
 import os
 import subprocess
@@ -17,7 +18,8 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+EXAMPLES = sorted((ROOT / "examples").glob("*_torch.py"))
+FORBIDDEN = ("jax", "jaxlib", "repro", "tests")
 
 
 def _imports(path: Path):
@@ -56,14 +58,18 @@ def test_port_files_exist():
                  "core/topology.py", "core/switch.py", "core/fabric.py",
                  "sharding/specs.py", "goldens.py", "core/scheduler.py",
                  "core/replay.py", "core/profiler.py", "models/moe.py",
-                 "serving/cluster.py"):
+                 "serving/cluster.py", "runfarm/__init__.py",
+                 "runfarm/units.py", "runfarm/store.py",
+                 "runfarm/manager.py", "runfarm/worker.py",
+                 "runfarm/report.py", "runfarm/builtin.py",
+                 "optim/compress.py"):
         assert want in names
     for src in ("systolic_matmul", "flash_fwd", "flash_bwd", "ssd_scan",
                 "wkv_scan"):
         assert (PKG / f"kernels/csrc/{src}.cu").exists()
 
 
-@pytest.mark.parametrize("path", FILES,
+@pytest.mark.parametrize("path", FILES + EXAMPLES,
                          ids=lambda p: p.relative_to(ROOT).as_posix())
 def test_no_import_of_jax_or_reference_package(path):
     bad = [(ln, mod) for ln, mod in _imports(path)
