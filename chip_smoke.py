@@ -49,6 +49,16 @@ card, and drives the port's paths:
     resumed from its store: the same digests, coverage and counters in
     every lane, the docs' digest reproduced, a planted bug shrunk to one
     launch;
+  * drivers — the twins of the examples and benchmarks
+    (``examples/*_torch.py``, ``benchmarks/*_torch.py``) in process on the
+    card: seven docs transcripts line for line (replay's but for the two
+    hashes of its float buffer), ResNet-18 co-verified through the matmul
+    kernel with its modeled lines equal to a CPU run's, the 102M
+    quickstart trained 100 steps with one restart from its step-50
+    checkpoint, ``benchmarks/run_torch.py``'s figures (Fig. 5 from this
+    run's own Fig. 5 readings), the fabric benchmark in full, the two
+    ``--check`` lanes, and the wall gates' readings beside their gates
+    (printed, not failing the run);
   * training — llama3.2-1b at full width (16 layers, seq 2048, batch 2,
     bf16 compute, ``attn_impl="pallas"``): one loss + backward with the
     kernels against the naive attention, then three ``Trainer`` steps with
@@ -107,11 +117,14 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from benchmarks.bench_debug_iteration_torch import (
+    CASES as FIG5_CASES, SWEEP_SIZES as FIG5_SWEEP_SIZES)
 from repro_torch import goldens
 from repro_torch._device import true_fp32
 from repro_torch._tree import leaves, tree_map
@@ -167,7 +180,10 @@ PEAK_BYTES = ("hbm_3.35_TBps", 3.35e12)
 CONG = dict(dos_prob=0.05, seed=7)
 MM_MAIN_CFG = dict(size=4096, tile=128)          # coverify_matmul
 FA_MAIN_CFG = dict(batch=1, heads=32, seq=2048, dim=64, bq=128, bk=128)
-FIG5_CASES = [(100, 160), (400, 320), (900, 480), (1600, 640), (2500, 800)]
+# this run's Fig. 5 readings (the five cases of coverify_matmul and the
+# batched lane of sweep), which the drivers phase turns into the figure's
+# rows instead of running them twice
+FIG5_READINGS: dict = {}
 GOLDEN = ROOT / "tests" / "golden"
 
 
@@ -1046,6 +1062,7 @@ def phase_coverify_matmul(card: str, mm_rows) -> int:
                      "iteration_s": r["iteration_s"], "n_txs": r["n_txs"],
                      "report": r["report"]})
     emit({"phase": "fig5_debug_iteration", "card": card, "cases": fig5})
+    FIG5_READINGS["cases"] = fig5
     return MMK.launches
 
 
@@ -1342,7 +1359,6 @@ SWEEP_CELLS = {"mm": dict(size=4096, tile=128),
 SWEEP_BACKENDS = ("oracle", "interpret", "compiled")
 SWEEP_DEVICES = (1, 2, 4)
 SWEEP_WORKERS = 4
-FIG5_SWEEP_SIZES = (64, 96, 128, 160)
 REPLAY_OPS, REPLAY_INSPECT, REPLAY_EVERY = 200, 150, 8
 SHRINK_OPS = 24
 TRACE_DIR = ROOT / "build" / "sweep_traces"
@@ -1534,6 +1550,7 @@ def phase_sweep(card: str) -> dict:
         "tile": 32, "workers": SWEEP_WORKERS, "sequential_s": seq_s,
         "batched_s": bat_s, "sequential_over_batched": seq_s / bat_s,
         "passed": seq_ok and bat_ok}
+    FIG5_READINGS["sweep"] = out["fig5_batched_lane"]
     if not (seq_ok and bat_ok):
         emit(out)
         fail("sweep (b): the Fig. 5 lanes did not pass")
@@ -1994,6 +2011,257 @@ def phase_campaign(card: str) -> int:
     if launches < 1:
         fail("campaign: the in-process lane never launched B1")
     shutil.rmtree(CAMPAIGN_DIR, ignore_errors=True)
+    return launches
+
+
+# ------------------------------------------------------------- phase 6g
+DRIVERS_DIR = ROOT / "build" / "drivers"
+QUICKSTART_DIR = ROOT / "build" / "quickstart"
+DOCS = ROOT / "docs"
+MODELED = "prints (deterministic — modeled cycles only, no wall time):"
+# (driver, arguments besides --device, docs page, sentinel of its block)
+DRIVER_TRANSCRIPTS = [
+    ("examples/profile_cnn_torch.py",
+     ["--trace-out", str(DRIVERS_DIR / "profile_cnn.trace.json")],
+     "profiling.md", MODELED),
+    ("examples/counter_dashboard_torch.py", [], "instrumentation.md",
+     MODELED),
+    ("examples/topology_tour_torch.py", [], "topology.md", MODELED),
+    ("examples/open_loop_serving_torch.py", [], "serving.md", MODELED),
+    ("benchmarks/bench_simspeed_torch.py", ["--selftest"], "performance.md",
+     MODELED),
+    ("examples/campaign_torch.py", [], "runfarm.md",
+     "prints (deterministic — digests, unit counts, and coverage only, no "
+     "wall time):"),
+    ("examples/time_travel_debug_torch.py", [], "replay.md",
+     "prints (deterministic — modeled clocks and seeded faults, no wall "
+     "time):"),
+]
+# the two places docs/replay.md's transcript hashes the float buffer c
+C_LEAF = re.compile(r"^(  first differing state leaf: buffers/c = )"
+                    r"'[0-9a-f]{12}' vs '[0-9a-f]{12}'$")
+C_ENTRY = re.compile(r"'c': '[0-9a-f]{12}'")
+RESNET_LAUNCHES = 17          # one B1 launch a conv of ResNet-18
+QUICKSTART_ARGS = ["--steps", "100", "--inject-failure", "60",
+                   "--ckpt-dir", str(QUICKSTART_DIR)]
+
+
+def fenced(page: str, sentinel: str) -> list:
+    doc = (DOCS / page).read_text().splitlines()
+    i = doc.index(sentinel)
+    start = doc.index("```", i) + 1
+    return doc[start:doc.index("```", start)]
+
+
+def mask_c(lines: list) -> list:
+    out = []
+    for ln in lines:
+        if C_LEAF.match(ln):
+            ln = C_LEAF.sub(r"\1<c> vs <c>", ln)
+        elif ln.startswith("   *buffers: "):
+            ln = C_ENTRY.sub("'c': <c>", ln)
+        out.append(ln)
+    return out
+
+
+def load_driver(rel: str):
+    """A driver of the checkout, loaded from its file."""
+    import importlib.util
+    path = ROOT / rel
+    spec = importlib.util.spec_from_file_location("driver_" + path.stem,
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_driver(mod, argv: list) -> tuple:
+    """(exit code, stdout lines, wall s) of ``mod.main(argv)`` on the
+    card, its standard output captured."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(argv + ["--device", "cuda"])
+    return rc or 0, buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def drivers_transcripts() -> dict:
+    out = {}
+    for rel, argv, page, sentinel in DRIVER_TRANSCRIPTS:
+        rc, got, wall = run_driver(load_driver(rel), argv)
+        want = fenced(page, sentinel)
+        masked = page == "replay.md"
+        same = (mask_c(got) == mask_c(want)) if masked else got == want
+        out[Path(rel).stem] = {"rc": rc, "lines": len(got), "equal": same,
+                               "c_hashes_masked": masked, "wall_s": wall}
+        if rc or not same:
+            emit({"phase": "drivers", "transcript": Path(rel).stem,
+                  "got": got, "want": want})
+            fail(f"drivers: {rel} does not print docs/{page}'s transcript "
+                 f"on the card")
+    return out
+
+
+def drivers_resnet18() -> dict:
+    """The paper's §V-D workload at its own size through the port's
+    coverify_cnn twin on the card, its modeled lines held against the same
+    interpret run on the CPU; the host copies of the interpret run timed
+    apart at each layer's shapes."""
+    from benchmarks import cnn_driver_torch as cnn
+    mod = load_driver("examples/coverify_cnn_torch.py")
+    calls = []
+    interp = cnn._mm_interp
+
+    def recorded(a, w, tile, device="cuda"):
+        t0 = time.perf_counter()
+        out = interp(a, w, tile, device=device)
+        calls.append((a.shape, w.shape, out.shape,
+                      time.perf_counter() - t0))
+        return out
+    cnn._mm_interp = recorded
+    before = MMK.launches
+    try:
+        rc, got, wall = run_driver(mod, ["--model", "resnet18"])
+    finally:
+        cnn._mm_interp = interp
+    launches = MMK.launches - before
+    cpu = cnn.run_cnn(cnn.resnet18_specs(36), "interpret",
+                      congestion=mod.CONG, device="cpu")
+    want = "\n".join(mod.congestion_report(cpu)).splitlines()
+    tail = got[len(got) - len(want):]
+    stalls = {ln.split()[0]: float(ln.split("stalls=")[1].split()[0])
+              for ln in tail if ln.startswith("  dma_")}
+    span = re.search(r"makespan: (\d+) cycles \(= bridge time (\d+)\)",
+                     "\n".join(tail))
+    rng = np.random.default_rng(0)
+    copies = sum(copy_seconds([rng.normal(size=a).astype(np.float32),
+                               rng.normal(size=w).astype(np.float32)], o)
+                 for a, w, o, _ in calls)
+    call_s = sum(c[3] for c in calls)
+    row = {"rc": rc, "wall_s": wall, "b1_launches": launches,
+           "layers": len(calls),
+           "equivalence": [ln.strip() for ln in got if "DDR act_" in ln
+                           or "functional equivalence" in ln],
+           "modeled_lines_equal_cpu": tail == want, "stalls": stalls,
+           "makespan_line": span.group(0) if span else None,
+           "interpret_call_s": call_s, "host_copies_s": copies,
+           "host_copy_share_of_interpret_calls": copies / call_s,
+           "host_copy_share_of_wall": copies / wall}
+    if rc or "  functional equivalence: PASS" not in got:
+        fail(f"drivers: ResNet-18 co-verification failed: {row}")
+    if launches != RESNET_LAUNCHES:
+        fail(f"drivers: ResNet-18 launched B1 {launches} times, not "
+             f"{RESNET_LAUNCHES}")
+    if not row["modeled_lines_equal_cpu"]:
+        emit({"phase": "drivers", "card": tail, "cpu": want})
+        fail("drivers: ResNet-18's modeled lines differ from the CPU's")
+    if len(stalls) != 3 or min(stalls.values()) <= 0 or not span or \
+            span.group(1) != span.group(2):
+        fail(f"drivers: ResNet-18 stalls or makespan wrong: {row}")
+    return row
+
+
+def drivers_quickstart() -> dict:
+    """The 102M quickstart at full width for 100 steps, a failure injected
+    at step 60 restoring the step-50 checkpoint."""
+    shutil.rmtree(QUICKSTART_DIR, ignore_errors=True)
+    graphs0 = compiled_graphs()
+    rc, got, wall = run_driver(load_driver("examples/quickstart_torch.py"),
+                               QUICKSTART_ARGS)
+    log = [json.loads(ln) for ln in
+           (QUICKSTART_DIR / "metrics.jsonl").read_text().splitlines()]
+    steps = [r["step"] for r in log]
+    after = steps[steps.index(59) + 1] if 59 in steps else None
+    row = {"rc": rc, "wall_s": wall, "preflight": got[0], "model": got[1],
+           "trained": next(ln for ln in got if ln.startswith("trained")),
+           "first_loss": log[0]["loss"], "final_loss": log[-1]["loss"],
+           "logged_steps": len(log), "step_after_59": after,
+           "median_step_ms": 1e3 * statistics.median(
+               r["step_time"] for r in log),
+           "compiled_graphs": compiled_graphs() - graphs0}
+    shutil.rmtree(QUICKSTART_DIR, ignore_errors=True)
+    if rc or not got[0].endswith("-> PASS") or \
+            "restarts=1;" not in row["trained"] or after != 50 or \
+            not row["final_loss"] < row["first_loss"] or \
+            not all(np.isfinite(r["loss"]) for r in log):
+        fail(f"drivers: quickstart failed: {row}")
+    return row
+
+
+def drivers_figures() -> dict:
+    """``benchmarks/run_torch.py``'s entries on the card (Fig. 5's two
+    rows from the numbers of this run's own Fig. 5 phases), then the fabric
+    scaling benchmark in full, the two ``--check`` lanes and the wall
+    gates, each reading printed beside its gate."""
+    import contextlib
+    import io
+    from benchmarks import (bench_debug_iteration_torch as fig5,
+                            bench_fabric_scaling_torch, run_torch)
+    out = {"rows": {}, "seconds": {}, "gates": {}}
+    cases = FIG5_READINGS["cases"]
+    out["rows"]["fig5_debug_iteration"] = [fig5.FIG5_HEADER] + [
+        fig5.fig5_row(c["pes"], c["wall_s"]) for c in cases]
+    lane = FIG5_READINGS["sweep"]
+    out["rows"]["fig5_batched_sweep"] = [
+        "case,cells,sequential_s,batched_s,speedup,passed",
+        f"fig5_sweep,{lane['cells']},{lane['sequential_s']:.2f},"
+        f"{lane['batched_s']:.2f},{lane['sequential_over_batched']:.2f}x,"
+        f"{lane['passed']}"]
+    for name, fn, gate in run_torch.entries("cuda"):
+        if name.startswith("fig5_"):
+            continue
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rows, held = run_torch._run(name, fn, gate)
+        out["seconds"][name] = time.perf_counter() - t0
+        out["rows"][name] = rows
+        if gate is not None:
+            out["gates"][name] = {"verdict": rows[-1], "held": held}
+    fa0, graphs0 = FAK.launches, compiled_graphs()
+    t0 = time.perf_counter()
+    full = bench_fabric_scaling_torch.run(quick=False, device="cuda")
+    out["fabric_full"] = {
+        "seconds": time.perf_counter() - t0, "rows": full,
+        "b2_launches": FAK.launches - fa0,
+        "compiled_graphs": compiled_graphs() - graphs0,
+        "cells": sum(r.startswith("fabric,") for r in full),
+        "all_equivalent": all(r.endswith(",True") for r in full
+                              if r.startswith("fabric,"))}
+    if out["fabric_full"]["b2_launches"] < 1 or \
+            not out["fabric_full"]["all_equivalent"]:
+        fail(f"drivers: fabric scaling --full: {out['fabric_full']}")
+    for rel in ("benchmarks/bench_serving_torch.py",
+                "benchmarks/bench_simspeed_torch.py"):
+        rc, got, wall = run_driver(load_driver(rel), ["--check"])
+        out[Path(rel).stem + "_check"] = {"rc": rc, "lines": got,
+                                          "wall_s": wall}
+        if rc or not got[-1].endswith("check: PASS"):
+            fail(f"drivers: {rel} --check failed: {got}")
+    return out
+
+
+def phase_drivers(card: str) -> dict:
+    """The drivers (``examples/*_torch.py``, ``benchmarks/*_torch.py``) in
+    process on the card: the docs' transcripts, ResNet-18 co-verified
+    through B1, the 102M quickstart trained with one restart, the figures
+    and the CI lanes.  Returns B1's and B2's launches in the phase."""
+    t_phase = time.perf_counter()
+    DRIVERS_DIR.mkdir(parents=True, exist_ok=True)
+    MMK.launches = 0
+    FAK.launches = 0
+    out = {"phase": "drivers", "card": card}
+    out["transcripts"] = drivers_transcripts()
+    out["resnet18"] = drivers_resnet18()
+    out["quickstart"] = drivers_quickstart()
+    out["figures"] = drivers_figures()
+    launches = {"systolic_matmul": MMK.launches, "flash_fwd": FAK.launches}
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -3042,6 +3310,7 @@ def main() -> int:
     gc.collect()                      # the engine's cycles hold its weights
     torch.cuda.empty_cache()
     campaign_launches = phase_campaign(card)
+    drivers = phase_drivers(card)
     train = phase_train_llama(card)
     ssm = phase_train_ssm(card)
     rwkv = phase_serve(card, "rwkv6-7b")
@@ -3053,7 +3322,8 @@ def main() -> int:
     if mm_launches < 1 or fa_launches < 1 or fuzz_launches < 1 or \
             min(fabric.values()) < 1 or min(sweep.values()) < 1 or \
             replay_launches < 1 or profile_launches < 1 or \
-            campaign_launches < 1 or min(train.values()) < 1 or \
+            campaign_launches < 1 or min(drivers.values()) < 1 or \
+            min(train.values()) < 1 or \
             min(ssm.values()) < 1 or min(rwkv.values()) < 1 or \
             min(zamba.values()) < 1 or min(cluster.values()) < 1 or \
             min(audio.values()) < 1 or min(vlm.values()) < 1 or \
@@ -3062,6 +3332,7 @@ def main() -> int:
              f"flash={fa_launches} fuzz={fuzz_launches} fabric={fabric} "
              f"sweep={sweep} replay={replay_launches} "
              f"profile={profile_launches} campaign={campaign_launches} "
+             f"drivers={drivers} "
              f"train={train} train_ssm={ssm} serve_rwkv6={rwkv} "
              f"serve_zamba2={zamba} cluster={cluster} "
              f"encode_audio={audio} serve_vlm={vlm} serve_moe={moe}")
@@ -3077,7 +3348,8 @@ def main() -> int:
                       "fabric": fabric["systolic_matmul"],
                       "sweep": sweep["systolic_matmul"],
                       "replay": replay_launches, "profile": profile_launches,
-                      "campaign": campaign_launches},
+                      "campaign": campaign_launches,
+                      "drivers": drivers["systolic_matmul"]},
                      {"fuzz": [mm_rows[i] for i in MM_FUZZ],
                       "fabric": mm_rows[MM_SHARD],
                       "sweep": [mm_rows[i] for i in
@@ -3096,6 +3368,7 @@ def main() -> int:
                      {"coverify_flash": fa_launches,
                       "fabric": fabric["flash_fwd"],
                       "sweep": sweep["flash_fwd"],
+                      "drivers": drivers["flash_fwd"],
                       "train_llama": train["flash_fwd"],
                       "train_ssm": ssm["flash_fwd"],
                       "serve_zamba2": zamba["flash_fwd"],

@@ -591,3 +591,32 @@ def test_campaign_pool_on_card_equals_in_process(card, tmp_path):
     assert {u: pool.records[u]["digest"] for u in pool.uids} == \
         {u: seq.records[u]["digest"] for u in seq.uids}
     assert pool.coverage.counts == seq.coverage.counts
+
+
+def test_cnn_driver_interpret_on_card(card):
+    """The paper's CNN firmware (``benchmarks/cnn_driver_torch.py``) with
+    the matmul kernel on the card: both activation buffers within 1e-3 of
+    the oracle's on the card, one launch a layer, and the modeled
+    congestion statistics equal to the same run's on the CPU."""
+    from benchmarks.cnn_driver_torch import run_cnn, small_cnn_specs
+    from repro_torch.core.congestion import CongestionConfig
+    cong = CongestionConfig(link_bytes_per_cycle=64.0, dos_prob=0.02,
+                            seed=7, priorities=(("dma_input", 2),
+                                                ("dma_output", 1),
+                                                ("dma_weights", 0)))
+    specs = small_cnn_specs(16)
+    before = MM.launches
+    fi = run_cnn(specs, "interpret", congestion=cong, device="cuda")
+    assert MM.launches - before == len(specs)
+    fo = run_cnn(specs, "oracle", device="cuda")
+    for name in ("act_0", "act_1"):
+        err = np.abs(fi.mem.buffers[name].array
+                     - fo.mem.buffers[name].array).max()
+        assert err < 1e-3, (name, err)
+    cpu = run_cnn(specs, "interpret", congestion=cong, device="cpu")
+    a, b = fi.congestion_stats(), cpu.congestion_stats()
+    assert (a.per_engine_stall, a.per_engine_busy, a.link_utilization,
+            a.makespan) == (b.per_engine_stall, b.per_engine_busy,
+                            b.link_utilization, b.makespan)
+    assert fi.log.render_heatmap(12, 64, kind="read") == \
+        cpu.log.render_heatmap(12, 64, kind="read")

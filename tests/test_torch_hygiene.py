@@ -18,7 +18,8 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-EXAMPLES = sorted((ROOT / "examples").glob("*_torch.py"))
+EXAMPLES = sorted((ROOT / "examples").glob("*_torch.py")) + sorted(
+    (ROOT / "benchmarks").glob("*_torch.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro", "tests")
 
 
@@ -77,6 +78,59 @@ def test_no_import_of_jax_or_reference_package(path):
     assert not bad, f"{path}: forbidden imports {bad}"
 
 
+def test_every_driver_has_a_twin():
+    """Every reference driver but ``benchmarks/roofline.py`` (it reads the
+    HLO profiler of the multi-device path the port does not have yet) has
+    a ``<name>_torch.py`` beside it."""
+    refs = sorted(p for d in ("examples", "benchmarks")
+                  for p in (ROOT / d).glob("*.py")
+                  if not p.stem.endswith("_torch") and p.stem != "__init__")
+    missing = [p.relative_to(ROOT).as_posix() for p in refs
+               if not p.with_name(p.stem + "_torch.py").exists()]
+    assert missing == ["benchmarks/roofline.py"]
+    assert len(EXAMPLES) == len(refs) - 1
+
+
+@pytest.mark.parametrize("path", EXAMPLES,
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_twins_import_no_reference_driver(path):
+    """A twin imports other drivers only as their ``_torch`` twins."""
+    bad = [(ln, mod) for ln, mod in _imports(path)
+           if mod.split(".")[0] in ("benchmarks", "examples")
+           and not (mod.endswith("_torch") or mod in ("benchmarks",
+                                                     "examples"))]
+    assert not bad, f"{path}: imports a reference driver: {bad}"
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.module in (
+                "benchmarks", "examples"):
+            names = [a.name for a in node.names]
+            assert all(n.endswith("_torch") for n in names), (path, names)
+
+
+@pytest.mark.parametrize("path", EXAMPLES,
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_twin_takes_device_and_argv(path):
+    """Every twin has ``main(argv=None)`` and a ``--device`` flag whose
+    default is ``cuda``."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    mains = [n for n in tree.body
+             if isinstance(n, ast.FunctionDef) and n.name == "main"]
+    if path.stem == "cnn_driver_torch":         # a library, not a driver
+        assert not mains
+        return
+    (main,) = mains
+    assert [a.arg for a in main.args.args] == ["argv"]
+    assert [getattr(d, "value", "?") for d in main.args.defaults] == [None]
+    devices = [kw.value.value for node in ast.walk(tree)
+               if isinstance(node, ast.Call)
+               and getattr(node.func, "attr", "") == "add_argument"
+               and node.args and getattr(node.args[0], "value", "")
+               == "--device"
+               for kw in node.keywords if kw.arg == "default"]
+    assert devices == ["cuda"]
+
+
 def test_every_submodule_imports_with_jax_blocked():
     mods = ["repro_torch"] + sorted(
         "repro_torch." + p.relative_to(PKG).with_suffix("").as_posix()
@@ -116,6 +170,22 @@ def test_chip_smoke_fails_without_cuda():
 def _needs_no_cuda():
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
+
+
+@pytest.mark.parametrize("rel", ["examples/coverify_cnn_torch.py",
+                                 "examples/topology_tour_torch.py",
+                                 "benchmarks/bench_simspeed_torch.py",
+                                 "benchmarks/run_torch.py"])
+def test_twins_raise_without_cuda(rel):
+    """A twin run with its defaults on a machine with no card raises the
+    device error; it never carries on on the CPU."""
+    _needs_no_cuda()
+    out = subprocess.run([sys.executable, str(ROOT / rel)], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    assert out.returncode != 0
+    assert "torch.cuda.is_available() is False" in out.stderr
+    assert out.stdout == ""
 
 
 def test_backends_raise_without_cuda_instead_of_running_on_cpu():
