@@ -88,7 +88,20 @@ card, and drives the port's paths:
     serving's (the vlm's with random patches and nonzero gates; the moe's
     fp32 route cut in depth to what fits beside the bf16 weights, its
     routing decisions compared), and one moe prefill repeated bit for
-    bit.
+    bit;
+  * sharded — the multi-device layer (``launch/mesh.py``, ``ShardCtx``,
+    ``sharding/{specs,ep,comm}.py``) on the one card: llama3.2-1b at full
+    width trained three steps through ``Trainer(mesh, ctx)`` on a one-rank
+    NCCL group (state placed by ``train_shardings(zero_level=1)``) against
+    the unsharded ``Trainer``'s three steps (losses and grad norms, B2 /
+    B3 / B4 launches, step times, one more step of each profiled);
+    moonshot-v1-16b-a3b at full width served under
+    ``moe_mode="ep_shardmap"`` through ``ServingEngine(ctx=...)`` with
+    ``serve_moe``'s tokens and routing decisions (its decode steps timed,
+    one profiled beside an engine without a context); then two spawned
+    ranks sharing ``cuda:0`` over gloo (mesh data 1 x model 2): the
+    expert-parallel moonshot layer against the unsplit one, and the
+    vocab-parallel embedding bit for bit.
 
 Every line of standard output is one JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure (no CUDA device, a build or
@@ -2672,6 +2685,9 @@ SERVE_ARCHS = {
                                  kernels={"flash_fwd": (FAK, 40)},
                                  phase="serve_vlm"),
 }
+# each served model's tokens by request id (phase ``sharded`` serves
+# moonshot again under a sharding context and must give the same)
+SERVED: dict = {}
 PLAIN = {"wkv_scan": (WKVK, "wkv_scan_plain"),
          "ssd_scan": (SSDK, "ssd_scan_plain"),
          "flash_fwd": (FAK, "flash_fwd_plain")}
@@ -2997,6 +3013,7 @@ def phase_serve(card: str, arch: str) -> dict:
     n_pre = len(pre)
 
     out = {r.rid: r for r in eng.requests.values()}
+    SERVED[arch] = {rid: list(r.out_tokens) for rid, r in out.items()}
     violations = list(eng.mem.log.violations)
     bad = [rid for rid, prompt, mx in reqs
            if rid not in out or not out[rid].done
@@ -3245,6 +3262,295 @@ def phase_cluster(card: str) -> dict:
 
 
 # --------------------------------------------------------------------- main
+# ------------------------------------------------------------ phase 13
+# The multi-device layer on the one card.  A one-rank NCCL group carries
+# the sharded Trainer and ServingEngine (every mesh dim of one rank: the
+# sharded code runs, nothing is split); two spawned ranks on cuda:0 over
+# gloo (NCCL takes one rank a card) carry the two regions that split work
+# over the model axis with all-reduces only: the expert-parallel layer and
+# the vocab-parallel embedding.  Gloo reduces CUDA tensors only for a few
+# ops and types: the collectives stage the bytes through host memory
+# (``sharding/comm.py``; the row prints how many).
+SHARDED_MOE_TOL = 2.0 ** -5       # bf16 MoE layer out, x max(1, max|plain|)
+
+
+def host_profile(fn, top: int = 8) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` (CPU and CUDA): the
+    host's self time and op count, the device's kernel time, and the ops
+    with the most host self time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    ka = prof.key_averages()
+    dev = sum(getattr(e, "self_device_time_total", 0) for e in ka)
+    ranked = sorted(ka, key=lambda e: -e.self_cpu_time_total)[:top]
+    return {"wall_ms": wall * 1e3,
+            "host_self_ms": sum(e.self_cpu_time_total for e in ka) / 1e3,
+            "device_ms": dev / 1e3, "host_ops": sum(e.count for e in ka),
+            "top_host": [[e.key, e.count, e.self_cpu_time_total / 1e3]
+                         for e in ranked]}
+
+
+def sharded_train(card: str) -> dict:
+    """Three steps of llama3.2-1b (``LLAMA``) through the unsharded
+    Trainer, then through ``Trainer(mesh (1, 1), ctx)``, from the same
+    state and batches.  The checkpoint writes are train_llama's
+    measurement: here they are left out."""
+    from repro_torch.launch.mesh import make_ctx, make_test_mesh
+    cfg = get_config(LLAMA["arch"])
+    L = cfg.n_layers
+    flags = RunFlags(attn_impl="pallas", microbatches=1)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=20, total_steps=LLAMA["steps"])
+    mesh = make_test_mesh((1, 1)).bind("cuda")
+    ckpt = Path(tempfile.mkdtemp(prefix="ckpt_", dir=_build.BUILD_DIR))
+    runs = {}
+    for name, kw in (("unsharded", {}),
+                     ("sharded", {"mesh": mesh, "ctx": make_ctx(mesh)})):
+        gc.collect()
+        torch.cuda.empty_cache()
+        tr = Trainer(cfg, TrainerConfig(
+            seq_len=LLAMA["seq_len"], global_batch=LLAMA["global_batch"],
+            steps=LLAMA["steps"], ckpt_dir=str(ckpt), seed=LLAMA["seed"]),
+            flags, opt, device="cuda", **kw)
+        tr.ckpt.save = lambda *a, **k: None
+        state = tr.init_state()
+        kinds = {type(x).__name__ for x in leaves(state)}
+        torch.cuda.synchronize()
+        FAK.launches = FAK.dkdv_launches = FAK.dq_launches = 0
+        t = time.perf_counter()
+        state, step = tr.train(state=state)
+        torch.cuda.synchronize()
+        runs[name] = {
+            "train_s": time.perf_counter() - t, "leaf_types": sorted(kinds),
+            "launches": {"flash_fwd": FAK.launches,
+                         "flash_dkdv": FAK.dkdv_launches,
+                         "flash_dq": FAK.dq_launches},
+            "loss": [r["loss"] for r in tr.metrics_log],
+            "grad_norm": [r["grad_norm"] for r in tr.metrics_log],
+            "step_ms": [r["step_time"] * 1e3 for r in tr.metrics_log]}
+        # one more step, profiled: where the context's extra host time goes
+        batch = {k: torch.from_numpy(v).cuda() for k, v in
+                 tr.dataset.batch(LLAMA["steps"]).items()}
+        runs[name]["profiled_step"] = host_profile(
+            lambda: tr._step_fn(state, batch))
+        del tr, state, batch
+    shutil.rmtree(ckpt, ignore_errors=True)
+    a, b = runs["unsharded"], runs["sharded"]
+    bitwise = a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"]
+    close = all(abs(x - y) <= 1e-5 * abs(y) for key in ("loss", "grad_norm")
+                for x, y in zip(b[key], a[key]))
+    want = {"flash_fwd": 2 * L * LLAMA["steps"],
+            "flash_dkdv": L * LLAMA["steps"], "flash_dq": L * LLAMA["steps"]}
+    out = {"runs": runs, "bitwise": bitwise, "rtol": 1e-5,
+           "zero_level": 1, "mesh": [1, 1]}
+    if len(b["loss"]) != LLAMA["steps"] or not close or \
+            a["launches"] != want or b["launches"] != want or \
+            b["leaf_types"] != ["DTensor"]:
+        fail(f"sharded train: {out}")
+    return out
+
+
+def sharded_serve(card: str) -> dict:
+    """moonshot-v1-16b-a3b at full width and depth under
+    ``moe_mode="ep_shardmap"`` through ``ServingEngine(ctx=...)`` on the
+    one-rank group: serve_moe's eight requests give serve_moe's tokens;
+    one prefill of the longest prompt makes the routing decisions of the
+    unsharded pjit layer."""
+    from repro_torch.launch.mesh import make_ctx, make_test_mesh
+    arch = "moonshot-v1-16b-a3b"
+    cfg = get_config(arch)
+    ctx = make_ctx(make_test_mesh((1, 1)).bind("cuda"))
+    flags = RunFlags(attn_impl="pallas", moe_mode="ep_shardmap")
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                            dtype=torch.bfloat16)
+    opts = {k: SERVE[k] for k in ("max_slots", "max_len", "prompt_pad",
+                                  "batching")}
+    eng = ServingEngine(cfg, params, flags=flags, ctx=ctx, device="cuda",
+                        **opts)
+    reqs = serve_requests(cfg)
+    decode_ms, decode_step = [], eng._decode_step
+
+    def timed_decode():
+        t = time.perf_counter()
+        decode_step()
+        decode_ms.append((time.perf_counter() - t) * 1e3)
+    eng._decode_step = timed_decode
+    FAK.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    drive_doorbell(eng, reqs)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t
+    launches = {"flash_fwd": FAK.launches}
+    eng._decode_step = decode_step
+    got = {r.rid: list(r.out_tokens) for r in eng.requests.values()}
+    kinds = sorted({type(x).__name__ for x in leaves(eng.params)}
+                   | {type(x).__name__ for x in leaves(eng.cache)})
+    # decode steps of the idle batch (every slot computed) on three
+    # engines over the same weights: without a context (the pjit layer,
+    # serve_moe's), with the context and the pjit layer, with the context
+    # and the expert-parallel layer: five timed (host clock to the argmax
+    # on the host), then one profiled
+    engines = {
+        "unsharded": ServingEngine(cfg, params, flags=flags, device="cuda",
+                                   **opts),
+        "sharded_pjit": ServingEngine(
+            cfg, params, flags=RunFlags(attn_impl="pallas"), ctx=ctx,
+            device="cuda", **opts),
+        "sharded_ep": eng}
+    profiles = {}
+    for name, e in engines.items():
+        e._decode_step()                              # a first call
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            e._decode_step()
+            times.append((time.perf_counter() - t0) * 1e3)
+        profiles[name] = {"decode_ms": times,
+                          "decode_ms_median": statistics.median(times),
+                          **host_profile(e._decode_step)}
+    del eng, engines, e
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = route_batch(cfg, reqs[0][1])
+    logs = []
+    for f, c in ((RunFlags(attn_impl="pallas"), None), (flags, ctx)):
+        with RouterLog() as log:
+            tf.make_prefill_fn(cfg, f, c, SERVE["max_len"])(params, batch)
+        logs.append(log)
+    flips = route_flips(logs[0], logs[1])
+    del params, batch, logs
+    gc.collect()
+    torch.cuda.empty_cache()
+    same = got == SERVED.get(arch)
+    out = {"arch": arch, "flags": dataclasses.asdict(flags), "mesh": [1, 1],
+           "serve_s": serve_s, "decode_steps": len(decode_ms),
+           "decode_step_ms_median": statistics.median(decode_ms),
+           "decode_profile": profiles, "launches": launches,
+           "tokens_equal_serve_moe": same, "routes": flips,
+           "leaf_types": kinds}
+    if not same or flips["flipped_tokens"] or not flips["same_calls"] or \
+            launches["flash_fwd"] != cfg.n_layers * len(reqs) or \
+            kinds != ["DTensor"]:
+        fail(f"sharded serve: {out}")
+    return out
+
+
+def _two_rank_worker(rank: int, store: str, result: str) -> None:
+    """One of the two ranks on cuda:0 (spawned): mesh (data 1, model 2)
+    over gloo."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_ctx, make_test_mesh
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.ep import moe_apply_ep
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2)
+    try:
+        # the DeviceMesh (DTensor layouts) is not used by these two
+        # regions: it lives on the host, the groups carry CUDA tensors
+        ctx = make_ctx(make_test_mesh((1, 2)).bind("cpu"))
+        cfg = get_config("moonshot-v1-16b-a3b")
+        dev = torch.device("cuda", 0)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        table = torch.randn((tf.padded_vocab(cfg), cfg.d_model), generator=gen,
+                            device=dev).to(torch.bfloat16)
+        w = moe_lib.moe_init(gen, cfg, 1, torch.bfloat16)
+        w = {k: v[0] for k, v in w.items()}
+        prompt = torch.from_numpy(serve_requests(cfg)[0][1]).to(dev)
+        row = {"rank": rank, "tokens": int(prompt.numel())}
+        with torch.no_grad():
+            emb = tf.embed_lookup(cfg, {"embed": table}, prompt[None], ctx)
+            row["embed_bitwise"] = bool(torch.equal(emb[0], table[prompt]))
+            x = torch.nn.functional.rms_norm(emb[0].float(), (cfg.d_model,)
+                                             ).to(torch.bfloat16)
+            with RouterLog() as plain_log:
+                want, want_aux = moe_lib.moe_apply(w, x, cfg)
+            with RouterLog() as ep_log:
+                got, aux = moe_apply_ep(w, x, cfg, ctx)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            ref = max(1.0, float(want.float().abs().max()))
+            row.update(max_abs_err=err, err_over_tol=err / (
+                SHARDED_MOE_TOL * ref), tol=SHARDED_MOE_TOL,
+                exact_share=float((got == want).float().mean()),
+                aux=float(aux), plain_aux=float(want_aux),
+                routes=route_flips(plain_log, ep_log),
+                local_experts=cfg.moe.n_experts // ctx.msize,
+                host_staged=dict(comm.HOST_STAGED),
+                out_dtype=str(got.dtype), device=str(got.device))
+        Path(result).write_text(json.dumps(row))
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_two_ranks() -> dict:
+    import torch.multiprocessing as mp
+    work = Path(tempfile.mkdtemp(prefix="two_rank_", dir=_build.BUILD_DIR))
+    t = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_two_rank_worker,
+                         args=(r, str(work / "store"),
+                               str(work / f"rank{r}.json")))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=600)
+        if p.is_alive():
+            p.kill()
+            p.join()
+    rows = []
+    for r, p in enumerate(procs):
+        f = work / f"rank{r}.json"
+        if p.exitcode != 0 or not f.exists():
+            fail(f"sharded two ranks: rank {r} exit code {p.exitcode}")
+        rows.append(json.loads(f.read_text()))
+    shutil.rmtree(work, ignore_errors=True)
+    out = {"note": "two ranks share one card (cuda:0) over gloo: this "
+                   "checks the collectives on CUDA tensors, not scaling",
+           "mesh": [1, 2], "wall_s": time.perf_counter() - t, "ranks": rows}
+    for row in rows:
+        if not row["embed_bitwise"] or row["err_over_tol"] >= 1.0 or \
+                row["routes"]["flipped_tokens"] or \
+                not row["routes"]["same_calls"] or \
+                row["aux"] != row["plain_aux"] or \
+                not row["device"].startswith("cuda"):
+            fail(f"sharded two ranks: {out}")
+    return out
+
+
+def phase_sharded(card: str) -> dict:
+    import torch.distributed as dist
+    t = time.perf_counter()
+    store = Path(tempfile.mkdtemp(prefix="pg_", dir=_build.BUILD_DIR))
+    dist.init_process_group("nccl", store=dist.FileStore(str(store / "s"), 1),
+                            rank=0, world_size=1)
+    try:
+        train = sharded_train(card)
+        serve = sharded_serve(card)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    two = sharded_two_ranks()
+    print(f"sharded: two spawned ranks shared one card (cuda:0) over gloo; "
+          f"their collectives staged "
+          f"{two['ranks'][0]['host_staged']['calls']} calls through host "
+          f"memory", file=sys.stderr)
+    row = {"phase": "sharded", "card": card, "train": train, "serve": serve,
+           "two_ranks": two, "seconds": time.perf_counter() - t}
+    emit(row)
+    return {**train["runs"]["sharded"]["launches"],
+            "serve_flash_fwd": serve["launches"]["flash_fwd"]}
+
+
 def kernel_entry(name, sources, replaces, main_row, rows, launches,
                  path_rows=None) -> dict:
     """``sources`` names the file with the kernel's C entry point first,
@@ -3319,6 +3625,7 @@ def main() -> int:
     audio = phase_encode_audio(card)
     vlm = phase_serve(card, "llama-3.2-vision-11b")
     moe = phase_serve(card, "moonshot-v1-16b-a3b")
+    sharded = phase_sharded(card)
     if mm_launches < 1 or fa_launches < 1 or fuzz_launches < 1 or \
             min(fabric.values()) < 1 or min(sweep.values()) < 1 or \
             replay_launches < 1 or profile_launches < 1 or \
@@ -3327,7 +3634,7 @@ def main() -> int:
             min(ssm.values()) < 1 or min(rwkv.values()) < 1 or \
             min(zamba.values()) < 1 or min(cluster.values()) < 1 or \
             min(audio.values()) < 1 or min(vlm.values()) < 1 or \
-            min(moe.values()) < 1:
+            min(moe.values()) < 1 or min(sharded.values()) < 1:
         fail(f"main path missed a kernel: matmul={mm_launches} "
              f"flash={fa_launches} fuzz={fuzz_launches} fabric={fabric} "
              f"sweep={sweep} replay={replay_launches} "
@@ -3335,7 +3642,8 @@ def main() -> int:
              f"drivers={drivers} "
              f"train={train} train_ssm={ssm} serve_rwkv6={rwkv} "
              f"serve_zamba2={zamba} cluster={cluster} "
-             f"encode_audio={audio} serve_vlm={vlm} serve_moe={moe}")
+             f"encode_audio={audio} serve_vlm={vlm} serve_moe={moe} "
+             f"sharded={sharded}")
     src = "src/repro_torch/kernels/csrc/"
     ref = "src/repro/kernels/"
     emit({"kernels": [
@@ -3375,7 +3683,9 @@ def main() -> int:
                       "cluster": cluster["flash_fwd"],
                       "encode_audio": audio["flash_fwd"],
                       "serve_vlm": vlm["flash_fwd"],
-                      "serve_moe": moe["flash_fwd"]},
+                      "serve_moe": moe["flash_fwd"],
+                      "sharded": sharded["flash_fwd"]
+                      + sharded["serve_flash_fwd"]},
                      {"fabric": fa_rows[FA_SHARD],
                       "sweep": [fa_rows[i] for i in
                                 (FA_MAIN, FA_SHARD2, FA_SHARD)],
@@ -3388,14 +3698,16 @@ def main() -> int:
                      ref + "flash_attention/kernel.py:186",
                      dkdv_rows[BWD_MAIN], dkdv_rows,
                      {"train_llama": train["flash_dkdv"],
-                      "train_ssm": ssm["flash_dkdv"]}),
+                      "train_ssm": ssm["flash_dkdv"],
+                      "sharded": sharded["flash_dkdv"]}),
         kernel_entry("flash_dq", [src + "flash_bwd.cu",
                                   src + "flash_dq_sm90.cuh",
                                   src + "sm90.cuh"],
                      ref + "flash_attention/kernel.py:256",
                      dq_rows[BWD_MAIN], dq_rows,
                      {"train_llama": train["flash_dq"],
-                      "train_ssm": ssm["flash_dq"]}),
+                      "train_ssm": ssm["flash_dq"],
+                      "sharded": sharded["flash_dq"]}),
         kernel_entry("ssd_scan", src + "ssd_scan.cu",
                      ref + "mamba2_scan/kernel.py:84",
                      ssd_rows[SSD_MAIN], ssd_rows,

@@ -11,7 +11,11 @@ checkpoints:
 ``save`` copies every leaf to host memory synchronously (a consistent
 point in time) and writes the files on a worker thread.  ``restore`` puts
 each leaf on the target device with the dtype of the matching leaf of
-``like`` (a tree of tensors, e.g. on the ``meta`` device).
+``like`` (a tree of tensors, e.g. on the ``meta`` device), and with
+``shardings`` places it in its TARGET layout (elastic reshard: train on
+mesh A, restore on mesh B).  Sharded state: every rank calls ``save``
+(a DTensor leaf is gathered whole, a collective) and rank 0 writes the
+files; every rank reads them back in ``restore``.
 """
 from __future__ import annotations
 
@@ -26,12 +30,20 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch._tree import paths, unflatten
+from repro_torch.sharding.specs import place, whole
 
 
 def _host(leaf: Any) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        return whole(leaf.detach()).cpu().numpy()
     return np.asarray(leaf)
+
+
+def _writer() -> bool:
+    """Whether this process writes checkpoint files (rank 0 of a
+    distributed job, or a lone process)."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 class CheckpointManager:
@@ -70,6 +82,8 @@ class CheckpointManager:
     def save(self, step: int, state: Any, extras: Optional[dict] = None):
         host = [(p, _host(v)) for p, v in paths(state)]
         self.wait()
+        if not _writer():
+            return
         if self.async_save:
             self._pending = threading.Thread(
                 target=self._write_guarded, args=(step, host, extras or {}))
@@ -134,15 +148,19 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, step: int, like: Any,
-                device: Union[str, torch.device] = "cuda") -> Any:
+                device: Union[str, torch.device] = "cuda",
+                shardings: Any = None) -> Any:
         """Restore into the structure of ``like``: every leaf as a tensor
-        of the matching leaf's dtype on ``device``."""
+        of the matching leaf's dtype on ``device``; with ``shardings`` (a
+        tree of ``sharding/specs.py`` ``Sharding``s) each leaf is placed in
+        its TARGET layout, a DTensor on that sharding's mesh."""
         dev = resolve_device(device)
         path = self.dir / f"step_{step:08d}"
         with np.load(path / "shard_00000" / "leaves.npz") as data:
             out = [torch.from_numpy(data[p]).to(device=dev, dtype=proto.dtype)
                    for p, proto in paths(like)]
-        return unflatten(like, out)
+        tree = unflatten(like, out)
+        return tree if shardings is None else place(tree, shardings)
 
     def extras(self, step: int) -> dict:
         meta = json.loads((self.dir / f"step_{step:08d}" / "meta.json")
@@ -152,9 +170,9 @@ class CheckpointManager:
 
 def load_checkpoint(directory, like: Any,
                     device: Union[str, torch.device] = "cuda",
-                    step: Optional[int] = None):
+                    step: Optional[int] = None, shardings: Any = None):
     mgr = CheckpointManager(directory)
     s = step if step is not None else mgr.latest_step()
     if s is None:
         return None, None
-    return mgr.restore(s, like, device), s
+    return mgr.restore(s, like, device, shardings), s

@@ -162,6 +162,24 @@ def mlp_apply(w: dict, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def token_nll(logits: torch.Tensor, labels: torch.Tensor,
+              z_loss: float = 0.0) -> torch.Tensor:
+    """The negative log-likelihood of each position (..., V) -> (...)."""
+    return _nll_lse(logits, labels, z_loss)[0]
+
+
+def _nll_lse(logits, labels, z_loss):
+    lf = logits.float()
+    m = lf.amax(dim=-1, keepdim=True).detach()
+    shifted = lf - m
+    lse = torch.log(torch.exp(shifted).sum(dim=-1)) + m[..., 0]
+    picked = lf.gather(-1, labels[..., None].long())[..., 0]
+    nll = lse - picked
+    if z_loss:
+        nll = nll + z_loss * lse.square()
+    return nll, lse
+
+
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           mask: Optional[torch.Tensor] = None,
                           z_loss: float = 0.0
@@ -171,14 +189,7 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     The max is a constant of the gradient (stop-gradient, as in the
     reference) and the label logit is picked with a gather of one index per
     position: no (..., V) one-hot or index tensor is made."""
-    lf = logits.float()
-    m = lf.amax(dim=-1, keepdim=True).detach()
-    shifted = lf - m
-    lse = torch.log(torch.exp(shifted).sum(dim=-1)) + m[..., 0]
-    picked = lf.gather(-1, labels[..., None].long())[..., 0]
-    nll = lse - picked
-    if z_loss:
-        nll = nll + z_loss * lse.square()
+    nll, lse = _nll_lse(logits, labels, z_loss)
     if mask is not None:
         denom = torch.clamp(mask.sum(), min=1.0)
         loss = (nll * mask).sum() / denom

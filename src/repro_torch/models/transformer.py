@@ -29,52 +29,139 @@ run without autograd.  Decode writes the token's k / v (and a hybrid's
 window entries) into the cache it was given, in place, and returns the
 other state leaves as new tensors (see ``make_decode_fn``).
 
-Single device: the reference's sharding context (``ShardCtx``) has no
-counterpart yet, and ``ctx`` must be ``None`` (ROADMAP queue A item 12,
-which also brings the reference's ``moe_mode`` with its expert-parallel
-dispatch).
+Sharding (``ctx``, a ``ShardCtx``): the reference partitions the same
+programs with GSPMD; the port runs them as explicit SPMD on local tensors
+(``sharding/comm.py``).  The state lives as DTensors in the reference's
+layouts (``sharding/specs.py``); each entry point turns every leaf into the
+form its use needs (``_compute_params``): this rank's heads of ``wq`` /
+``wk`` / ``wv`` / ``wo`` and its share of a dense MLP's hidden dim where the
+model axis divides the heads (Megatron tensor parallelism: the kernels run
+on the local heads), its rows of the vocab (the embedding lookup and the
+logits, vocab-parallel as in the reference), its experts under
+``moe_mode="ep_shardmap"`` (``sharding/ep.py``), every other leaf whole.
+Activations carry the batch rows of this rank's data shard where the data
+axes divide the batch (``batch_specs``' rule), else all of them; the model
+group computes the rest alike.  With ``sequence_parallel`` the residual
+stream between the layers of a dense / moe / audio stack keeps this rank's
+share of the sequence.  Kernels never see a DTensor.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+import math
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch._tree import tree_map
+from repro_torch._tree import paths, tree_map, unflatten
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers, mamba2, rwkv6
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import AttnSpec, attention, decode_attention
+from repro_torch.sharding import comm, ep
 
 
 @dataclasses.dataclass(frozen=True)
 class RunFlags:
-    """The reference's run-time knobs that the ported paths read (its
-    sharding knobs come with ROADMAP queue A item 12; remat is always of
-    whole layers, the reference's ``remat_policy="full"``)."""
+    """The reference's run-time knobs that the ported paths read."""
     attn_impl: str = "chunked"          # naive | chunked | pallas
     q_chunk: int = 512
     kv_chunk: int = 512
     skip_masked_tiles: bool = False     # causal tile skipping (chunked)
     microbatches: int = 1               # grad-accumulation microbatches
     remat: bool = True
+    moe_mode: str = "pjit"              # pjit | ep_shardmap (with a ctx)
     moe_seq_chunk: int = 2048           # chunk S for the MoE dispatch
                                         # (0 = no chunking)
     compute_dtype: str = "bfloat16"     # bfloat16 | float32 (oracle mode)
     wkv_chunk: int = 16                 # RWKV WKV chunk length
+    remat_policy: str = "full"          # full | save_block_io
+    sequence_parallel: bool = False     # Megatron-SP residual stream
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    """The reference's sharding context: a mesh (``launch/mesh.py``; bound
+    to the process group wherever a path communicates), the data axes and
+    the model axis."""
+    mesh: Any
+    data_axes: Tuple[str, ...] = ("data",)
+    model_axis: str = "model"
+    # set by the entry points, never by callers: the activations that this
+    # context travels with hold only this data rank's batch rows
+    rows_split: bool = False
+
+    @property
+    def data_spec(self):
+        return self.data_axes if len(self.data_axes) > 1 else self.data_axes[0]
+
+    @property
+    def msize(self) -> int:
+        return self.mesh.axis_sizes[self.model_axis]
+
+    @property
+    def dsize(self) -> int:
+        return math.prod(self.mesh.axis_sizes[a] for a in self.data_axes)
+
+    def _coord(self) -> dict:
+        return dict(zip(self.mesh.axis_names, self.mesh.coordinate()))
+
+    @property
+    def model_rank(self) -> int:
+        return self._coord()[self.model_axis] if self.msize > 1 else 0
+
+    @property
+    def data_rank(self) -> int:
+        if self.dsize == 1:
+            return 0
+        c, sizes = self._coord(), self.mesh.axis_sizes
+        r = 0
+        for a in self.data_axes:                 # major to minor
+            r = r * sizes[a] + c[a]
+        return r
+
+    @property
+    def model_group(self):
+        return self.mesh.group((self.model_axis,))
+
+    @property
+    def data_group(self):
+        return self.mesh.group(tuple(self.data_axes))
+
+    def splits_batch(self, n: int) -> bool:
+        """Whether a leading dim of ``n`` is sharded over the data axes
+        (``batch_specs``' rule)."""
+        return n % self.dsize == 0 and n > 1 and self.dsize > 1
+
+
+def _constrain(x, ctx: Optional[ShardCtx], *spec):
+    """The reference's sharding constraint on an activation.  Values are
+    never changed; the one layout the port moves is the sequence split of
+    the residual stream (a ``model`` entry on dim 1 of a (B, S, d)
+    activation: this rank keeps its share of S, see ``_seq_gather``).
+    Batch entries describe the layout activations already have."""
+    if ctx is None or len(spec) < 2 or spec[1] != ctx.model_axis:
+        return x
+    if ctx.msize == 1 or x.shape[1] % ctx.msize:
+        return x
+    return comm.split_model(x, ctx, 1)
+
+
+def _seq_gather(x, ctx: Optional[ShardCtx], S: int):
+    """The whole sequence of a residual stream that ``_constrain`` split."""
+    if ctx is None or x.shape[1] == S:
+        return x
+    return comm.gather_model(x, ctx, 1)
 
 
 _FAMILIES = ("dense", "audio", "moe", "vlm", "hybrid", "ssm")
 
 
 def _check(cfg: ModelConfig, ctx: Any = None) -> None:
-    if ctx is not None:
-        raise NotImplementedError(
-            "the port runs on one device: ctx (a sharding context) must be "
-            "None until the multi-device item of ROADMAP queue A item 12")
+    if ctx is not None and not isinstance(ctx, ShardCtx):
+        raise TypeError(f"ctx must be a ShardCtx or None, not {type(ctx)}")
     if cfg.family not in _FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r} (arch {cfg.arch})")
 
@@ -191,19 +278,50 @@ def init_params(cfg: ModelConfig, gen: Optional[torch.Generator],
 
 def embed_lookup(cfg: ModelConfig, params, ids: torch.Tensor,
                  ctx: Any = None) -> torch.Tensor:
+    """Vocab-parallel under ``ctx`` (the reference's shard_map): each rank
+    looks up the ids that fall in its rows of the table, zeros the rest,
+    and the model group sums."""
     _check(cfg, ctx)
-    return params["embed"][ids.long()]
+    table = params["embed"]
+    if ctx is None:
+        return table[ids.long()]
+    table = _compute_leaf(table, ctx, 0, padded_vocab(cfg))
+    if table.shape[0] == padded_vocab(cfg):
+        return table[ids.long()]
+    rows = table.shape[0]
+    loc = ids.long() - ctx.model_rank * rows
+    ok = (loc >= 0) & (loc < rows)
+    emb = table[loc.clamp(0, rows - 1)]
+    emb = torch.where(ok[..., None], emb, torch.zeros((), dtype=emb.dtype,
+                                                      device=emb.device))
+    return comm.from_model_region(emb, ctx)
 
 
 def lm_logits(cfg: ModelConfig, params, x: torch.Tensor,
               ctx: Any = None) -> torch.Tensor:
     """Logits over the PADDED vocab: the padded rows of the (tied)
-    embedding take part in the softmax, as in the reference."""
+    embedding take part in the softmax, as in the reference.  Under
+    ``ctx`` each rank computes the logits of its rows of the vocab (the
+    reference's vocab-on-``model`` constraint) and the model group
+    gathers them."""
     _check(cfg, ctx)
-    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    if cfg.tie_embeddings and cfg.frontend != "frames":
-        return x @ params["embed"].t().to(x.dtype)
-    return x @ params["lm_head"].to(x.dtype)
+    norm = params["final_norm"]
+    if ctx is not None:
+        norm = _compute_leaf(norm, ctx, None)
+    x = layers.rms_norm(x, norm, cfg.norm_eps)
+    Vp = padded_vocab(cfg)
+    tied = cfg.tie_embeddings and cfg.frontend != "frames"
+    if ctx is None:
+        w = params["embed"].t() if tied else params["lm_head"]
+        return x @ w.to(x.dtype)
+    if tied:
+        w = _compute_leaf(params["embed"], ctx, 0, Vp).t()
+    else:
+        w = _compute_leaf(params["lm_head"], ctx, -1, Vp)
+    if w.shape[-1] == Vp:
+        return x @ w.to(x.dtype)
+    logits = comm.to_model_region(x, ctx) @ w.to(x.dtype)
+    return comm.gather_model(logits, ctx, -1)
 
 
 # ---------------------------------------------------------------------------
@@ -211,29 +329,73 @@ def lm_logits(cfg: ModelConfig, params, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _qkv(cfg, w, x, pos):
+def _kv_for_heads(cfg, ctx, k, v, Hl):
+    """The k / v heads that this rank's ``Hl`` query heads read, from all
+    KH of them: a contiguous run of whole groups where the heads split
+    along group bounds, else one k / v head per query head."""
+    G = cfg.n_heads // cfg.n_kv_heads
+    q0 = ctx.model_rank * Hl
+    lo, hi = q0 // G, (q0 + Hl - 1) // G + 1
+    if (q0 % G == 0 and Hl % G == 0) or hi - lo == 1:
+        return (k[:, :, lo:hi].contiguous(), v[:, :, lo:hi].contiguous())
+    idx = torch.arange(q0, q0 + Hl, device=k.device) // G
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _attn_out(cfg, flags: RunFlags, ctx, w, ln, x, pos, *, window=0,
+              return_kv=False):
+    """The attention block's output projection (this rank's share of the
+    sum where it runs on its own heads) and, with ``return_kv``, the
+    layer's k / v (all KH heads)."""
     B, S, _ = x.shape
-    q = (x @ w["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = (x @ w["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = (x @ w["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    hd = cfg.head_dim
+    h = layers.rms_norm(x, ln, cfg.norm_eps)
+    Hl = w["wq"].shape[-1] // hd
+    tp = Hl < cfg.n_heads
+    wk, wv = w["wk"], w["wv"]
+    if tp:
+        h = comm.to_model_region(h, ctx)
+        if wk.shape[-1] == cfg.d_kv:        # all KH heads on every rank
+            wk = comm.to_model_region(wk, ctx)
+            wv = comm.to_model_region(wv, ctx)
+    q = (h @ w["wq"]).reshape(B, S, Hl, hd)
+    k = (h @ wk).reshape(B, S, wk.shape[-1] // hd, hd)
+    v = (h @ wv).reshape(B, S, wv.shape[-1] // hd, hd)
     q = layers.apply_rope(q, pos, cfg.rope)
     k = layers.apply_rope(k, pos, cfg.rope)
-    return q, k, v
-
-
-def attn_block(cfg, flags: RunFlags, ctx, w, ln, x, pos, *, window=0,
-               return_kv=False):
-    h = layers.rms_norm(x, ln, cfg.norm_eps)
-    q, k, v = _qkv(cfg, w, h, pos)
+    kv = (k, v)
+    if tp and k.shape[2] == cfg.n_kv_heads:
+        k, v = _kv_for_heads(cfg, ctx, k, v, Hl)
+    elif tp and return_kv:                  # the cache holds all KH heads
+        kv = (comm.gather_model(k, ctx, 2), comm.gather_model(v, ctx, 2))
     spec = AttnSpec(causal=cfg.causal, window=window, q_chunk=flags.q_chunk,
                     kv_chunk=flags.kv_chunk,
                     skip_masked_tiles=flags.skip_masked_tiles,
                     positions_are_arange=True)
     o = attention(q, k, v, impl=flags.attn_impl, spec=spec, q_pos=pos,
                   kv_pos=pos)
-    B, S, _ = x.shape
-    out = x + o.reshape(B, S, cfg.d_q) @ w["wo"]
-    return (out, (k, v)) if return_kv else out
+    y = o.reshape(B, S, Hl * hd) @ w["wo"]
+    return (y, kv) if return_kv else y
+
+
+def _heads_split(cfg, w) -> bool:
+    return w["wq"].shape[-1] < cfg.d_q
+
+
+def attn_block(cfg, flags: RunFlags, ctx, w, ln, x, pos, *, window=0,
+               return_kv=False):
+    """Under ``ctx``, where ``w["wq"]`` holds this rank's heads (see
+    ``_compute_params``), the block runs on them: the kernels see the
+    local heads (and their k / v heads, whole or picked from all KH where
+    the model axis does not divide KH), and the model group sums the
+    output projection."""
+    y = _attn_out(cfg, flags, ctx, w, ln, x, pos, window=window,
+                  return_kv=return_kv)
+    y, kv = y if return_kv else (y, None)
+    if _heads_split(cfg, w):
+        y = comm.from_model_region(y, ctx)
+    out = x + y
+    return (out, kv) if return_kv else out
 
 
 def attn_block_decode(cfg, w, ln, x, q_pos, kcache, vcache, kv_pos, *,
@@ -248,16 +410,51 @@ def attn_block_decode(cfg, w, ln, x, q_pos, kcache, vcache, kv_pos, *,
     return x + o.reshape(B, 1, cfg.d_q) @ w["wo"]
 
 
-def mlp_block(cfg, w, ln, x):
+def _mlp_split(cfg, w) -> bool:
+    up = w["w_up"] if cfg.mlp_type == "swiglu" else w["w_in"]
+    return up.shape[-1] < cfg.d_ff
+
+
+def _mlp_out(cfg, ctx, w, ln, x):
+    """The mlp's output (this rank's share of the sum where the weights
+    hold its share of the hidden dim)."""
     h = layers.rms_norm(x, ln, cfg.norm_eps)
-    return x + layers.mlp_apply(w, h, cfg.mlp_type)
+    if _mlp_split(cfg, w):
+        h = comm.to_model_region(h, ctx)
+    return layers.mlp_apply(w, h, cfg.mlp_type)
+
+
+def mlp_block(cfg, w, ln, x, ctx=None):
+    """Under ``ctx``, where the weights hold this rank's share of the
+    hidden dim, the model group sums the output."""
+    y = _mlp_out(cfg, ctx, w, ln, x)
+    if _mlp_split(cfg, w):
+        y = comm.from_model_region(y, ctx)
+    return x + y
+
+
+def _moe_tokens(cfg, flags: RunFlags, ctx, w_moe, ht):
+    """(out, aux) of the moe layer over the tokens ``ht`` (T, d)."""
+    if ctx is None:
+        return moe_lib.moe_apply(w_moe, ht, cfg)
+    if flags.moe_mode == "ep_shardmap":
+        return ep.moe_apply_ep(w_moe, ht, cfg, ctx)
+    if flags.moe_mode != "pjit":
+        raise ValueError(f"unknown moe_mode {flags.moe_mode!r}")
+    # the reference's pjit layer: global semantics over every data
+    # shard's tokens (capacity and drops), as GSPMD runs it
+    if not ctx.rows_split:
+        return moe_lib.moe_apply(w_moe, ht, cfg)
+    out, aux = moe_lib.moe_apply(w_moe, comm.gather_data(ht, ctx), cfg)
+    return comm.data_chunk(out, ctx), aux
 
 
 def moe_block(cfg, flags: RunFlags, ctx, w_moe, ln, x):
     """The moe layer over x (B, S, d): the dispatch runs over chunks of
     ``flags.moe_seq_chunk`` positions (all B rows of a chunk together)
-    where that divides S, and the aux loss is their mean.  Returns
-    (x + y, aux)."""
+    where that divides S, and the aux loss is their mean.  Under ``ctx``,
+    ``flags.moe_mode`` picks the reference's pjit layer or its
+    expert-parallel one (``sharding/ep.py``).  Returns (x + y, aux)."""
     _check(cfg, ctx)
     B, S, d = x.shape
     h = layers.rms_norm(x, ln, cfg.norm_eps)
@@ -268,23 +465,78 @@ def moe_block(cfg, flags: RunFlags, ctx, w_moe, ln, x):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         ys = []
         for i in range(nc):
-            y, a = moe_lib.moe_apply(w_moe, hc[:, i].reshape(B * ch, d), cfg)
+            y, a = _moe_tokens(cfg, flags, ctx, w_moe,
+                               hc[:, i].reshape(B * ch, d))
             aux = aux + a
             ys.append(y.reshape(B, ch, d))
         y = torch.stack(ys, dim=1).reshape(B, S, d)
         aux = aux / nc
     else:
-        y, aux = moe_lib.moe_apply(w_moe, h.reshape(B * S, d), cfg)
+        y, aux = _moe_tokens(cfg, flags, ctx, w_moe, h.reshape(B * S, d))
         y = y.reshape(B, S, d)
     return x + y, aux
 
 
-def _layer(cfg, flags, pos, x, wl):
-    """One attention layer and its mlp or moe -> (x, aux or None)."""
-    x = attn_block(cfg, flags, None, wl["attn"], wl["ln1"], x, pos)
+def _layer(cfg, flags, ctx, pos, x, wl):
+    """One attention layer and its mlp or moe -> (x, aux or None).  With
+    ``sequence_parallel`` the layer takes and returns this rank's share of
+    the sequence."""
+    x = _seq_gather(x, ctx, pos.shape[1])
+    x = attn_block(cfg, flags, ctx, wl["attn"], wl["ln1"], x, pos)
     if "moe" in wl:
-        return moe_block(cfg, flags, None, wl["moe"], wl["ln2"], x)
-    return mlp_block(cfg, wl["mlp"], wl["ln2"], x), None
+        x, a = moe_block(cfg, flags, ctx, wl["moe"], wl["ln2"], x)
+    else:
+        x, a = mlp_block(cfg, wl["mlp"], wl["ln2"], x, ctx), None
+    return _residual_split(x, flags, ctx), a
+
+
+def _residual_split(x, flags, ctx):
+    """The reference's constraint on the residual stream between layers:
+    (data, model with ``sequence_parallel``, None)."""
+    if ctx is None:
+        return x
+    return _constrain(x, ctx, ctx.data_spec,
+                      ctx.model_axis if flags.sequence_parallel else None,
+                      None)
+
+
+def _layer_block_io(cfg, flags, ctx, pos, x, wl):
+    """``_layer`` under ``remat_policy="save_block_io"``: the attention
+    and the mlp (or moe) bodies are recomputed in the backward, their
+    outputs after the model group's sum are kept (the reference saves
+    ``attn_out`` and ``mlp_out``), so the recompute runs only local math.
+    Selective checkpointing (``create_selective_checkpoint_contexts``)
+    cannot say this: it replays every op of the function and only swaps
+    in saved outputs, so the collectives before a saved output would run
+    again."""
+    x = _seq_gather(x, ctx, pos.shape[1])
+    y = _ckpt(_attn_out, cfg, flags, ctx, wl["attn"], wl["ln1"], x, pos)
+    if _heads_split(cfg, wl["attn"]):
+        y = comm.from_model_region(y, ctx)
+    x = x + y
+    if "moe" in wl:
+        x, a = _ckpt(moe_block, cfg, flags, ctx, wl["moe"], wl["ln2"], x)
+    else:
+        y = _ckpt(_mlp_out, cfg, ctx, wl["mlp"], wl["ln2"], x)
+        if _mlp_split(cfg, wl["mlp"]):
+            y = comm.from_model_region(y, ctx)
+        x, a = x + y, None
+    return _residual_split(x, flags, ctx), a
+
+
+def _ckpt(fn, *args):
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def _remat_layer(cfg, flags, ctx, pos, x, wl):
+    """A training layer under ``flags.remat`` and its policy."""
+    if not flags.remat:
+        return _layer(cfg, flags, ctx, pos, x, wl)
+    if flags.remat_policy == "save_block_io":
+        return _layer_block_io(cfg, flags, ctx, pos, x, wl)
+    if flags.remat_policy != "full":
+        raise ValueError(f"unknown remat_policy {flags.remat_policy!r}")
+    return _ckpt(_layer, cfg, flags, ctx, pos, x, wl)
 
 
 def _add_aux(aux, a):
@@ -304,29 +556,27 @@ def _unstack(tree, L: int):
 # ---------------------------------------------------------------------------
 
 
-def _forward_dense(cfg, flags, bl, x, pos, aux, collect_cache):
+def _forward_dense(cfg, flags, ctx, bl, x, pos, aux, collect_cache):
     """dense, audio and moe: one attention layer and its mlp or moe a
     layer."""
     kvs = []
+    if not collect_cache:
+        x = _residual_split(x, flags, ctx)
     for wl in _unstack(bl, cfg.n_layers):
         if collect_cache:
-            x, kv = attn_block(cfg, flags, None, wl["attn"], wl["ln1"], x,
+            x, kv = attn_block(cfg, flags, ctx, wl["attn"], wl["ln1"], x,
                                pos, return_kv=True)
             if "moe" in wl:
-                x, a = moe_block(cfg, flags, None, wl["moe"], wl["ln2"], x)
+                x, a = moe_block(cfg, flags, ctx, wl["moe"], wl["ln2"], x)
                 aux = aux + a
             else:
-                x = mlp_block(cfg, wl["mlp"], wl["ln2"], x)
+                x = mlp_block(cfg, wl["mlp"], wl["ln2"], x, ctx)
             kvs.append(kv)
             continue
-        if flags.remat:
-            x, a = checkpoint(_layer, cfg, flags, pos, x, wl,
-                              use_reentrant=False)
-        else:
-            x, a = _layer(cfg, flags, pos, x, wl)
+        x, a = _remat_layer(cfg, flags, ctx, pos, x, wl)
         aux = _add_aux(aux, a)
     if not collect_cache:
-        return x, aux, None
+        return _seq_gather(x, ctx, pos.shape[1]), aux, None
     return x, aux, {"k": torch.stack([k for k, _ in kvs]),    # (L,B,S,KH,hd)
                     "v": torch.stack([v for _, v in kvs])}
 
@@ -352,7 +602,7 @@ def _cross_block(cfg, flags, cw, x, pos, patches, ppos):
     return x, (k, v)
 
 
-def _forward_vlm(cfg, flags, bl, x, pos, patches, collect_cache):
+def _forward_vlm(cfg, flags, ctx, bl, x, pos, patches, collect_cache):
     """Each super-layer: ``per`` self-attention layers, then the gated
     cross attention over the patch embeddings."""
     n_cross, per = bl["ln1"].shape[:2]
@@ -365,15 +615,12 @@ def _forward_vlm(cfg, flags, bl, x, pos, patches, collect_cache):
         for pi in range(per):
             wl = _at(self_w, ci, pi)
             if collect_cache:
-                x, kv = attn_block(cfg, flags, None, wl["attn"], wl["ln1"], x,
+                x, kv = attn_block(cfg, flags, ctx, wl["attn"], wl["ln1"], x,
                                    pos, return_kv=True)
-                x = mlp_block(cfg, wl["mlp"], wl["ln2"], x)
+                x = mlp_block(cfg, wl["mlp"], wl["ln2"], x, ctx)
                 kvs.append(kv)
-            elif flags.remat:
-                x, _ = checkpoint(_layer, cfg, flags, pos, x, wl,
-                                  use_reentrant=False)
             else:
-                x, _ = _layer(cfg, flags, pos, x, wl)
+                x, _ = _remat_layer(cfg, flags, ctx, pos, x, wl)
         x, ckv = _cross_block(cfg, flags, _at(bl["cross"], ci), x, pos,
                               patches, ppos)
         cross.append(ckv)
@@ -385,7 +632,7 @@ def _forward_vlm(cfg, flags, bl, x, pos, patches, collect_cache):
                "cross_v": torch.stack([v for _, v in cross])}
 
 
-def _forward_hybrid(cfg, flags, bl, x, pos, collect_cache):
+def _forward_hybrid(cfg, flags, ctx, bl, x, pos, collect_cache):
     shared = bl["shared"]
     n_super, per = bl["mamba_ln"].shape[:2]
     states, tails, win_k, win_v = [], [], [], []
@@ -399,13 +646,13 @@ def _forward_hybrid(cfg, flags, bl, x, pos, collect_cache):
                 states.append(st)
                 tails.append(tl)
         if collect_cache:
-            x, (k, v) = attn_block(cfg, flags, None, shared["attn"],
+            x, (k, v) = attn_block(cfg, flags, ctx, shared["attn"],
                                    shared["ln1"], x, pos,
                                    window=cfg.attn_window, return_kv=True)
         else:
-            x = attn_block(cfg, flags, None, shared["attn"], shared["ln1"], x,
+            x = attn_block(cfg, flags, ctx, shared["attn"], shared["ln1"], x,
                            pos, window=cfg.attn_window)
-        x = mlp_block(cfg, shared["mlp"], shared["ln2"], x)
+        x = mlp_block(cfg, shared["mlp"], shared["ln2"], x, ctx)
         if collect_cache:
             W = min(cfg.attn_window or x.shape[1], x.shape[1])
             win_k.append(k[:, -W:])
@@ -457,17 +704,18 @@ def forward(cfg: ModelConfig, params, batch: dict, flags: RunFlags,
         B, S = ids.shape
         pos = torch.arange(S, dtype=torch.int32,
                            device=ids.device).expand(B, S)
-        x = embed_lookup(cfg, params, ids).to(cdt)
+        x = embed_lookup(cfg, params, ids, ctx).to(cdt)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     bl = params["blocks"]
     if cfg.family in ("dense", "audio", "moe"):
-        x, aux, cache = _forward_dense(cfg, flags, bl, x, pos, aux,
+        x, aux, cache = _forward_dense(cfg, flags, ctx, bl, x, pos, aux,
                                        collect_cache)
     elif cfg.family == "vlm":
-        x, cache = _forward_vlm(cfg, flags, bl, x, pos,
+        x, cache = _forward_vlm(cfg, flags, ctx, bl, x, pos,
                                 batch["patches"].to(cdt), collect_cache)
     elif cfg.family == "hybrid":
-        x, cache = _forward_hybrid(cfg, flags, bl, x, pos, collect_cache)
+        x, cache = _forward_hybrid(cfg, flags, ctx, bl, x, pos,
+                                   collect_cache)
     else:
         x, cache = _forward_ssm(cfg, flags, bl, x, collect_cache)
     return x, aux, cache
@@ -478,27 +726,142 @@ def forward(cfg: ModelConfig, params, batch: dict, flags: RunFlags,
 # ---------------------------------------------------------------------------
 
 
+def _split_dim(cfg, flags: RunFlags, ctx: ShardCtx, path: str, ndim: int,
+               heads: bool) -> Optional[int]:
+    """The dim of a parameter leaf that stays split over the model axis
+    in the form this rank computes with (None: the whole leaf)."""
+    m = ctx.msize
+    if m == 1:
+        return None
+    leaf = path.rsplit("/", 1)[-1]
+    if path in ("embed", "lm_head"):
+        return (0 if path == "embed" else ndim - 1) \
+            if padded_vocab(cfg) % m == 0 else None
+    if "/attn/" in f"/{path}" and heads and cfg.n_heads % m == 0:
+        if leaf == "wq":
+            return ndim - 1
+        if leaf == "wo":
+            return ndim - 2
+        if leaf in ("wk", "wv") and cfg.n_kv_heads % m == 0:
+            return ndim - 1
+        return None
+    if path.startswith(("blocks/mlp/", "blocks/shared/mlp/")) and heads \
+            and cfg.d_ff % m == 0:
+        if leaf in ("w_gate", "w_up", "w_in"):
+            return ndim - 1
+        if leaf in ("w_down", "w_out"):
+            return ndim - 2
+    if path.startswith("blocks/moe/") and leaf != "router" \
+            and flags.moe_mode == "ep_shardmap":
+        if cfg.moe.n_experts % m:
+            raise ValueError(f"ep_shardmap needs the model axis ({m}) to "
+                             f"divide the {cfg.moe.n_experts} experts")
+        return 1
+    return None
+
+
+def _compute_leaf(t, ctx: ShardCtx, dim: Optional[int],
+                  full: Optional[int] = None):
+    """``t`` in the form this rank computes with: this rank's chunk of
+    dim ``dim`` along the model axis (``dim`` None: the whole tensor),
+    whole along the data axes.  A DTensor is redistributed so that
+    autograd brings its gradient back in its own layout (summed over the
+    data axes, whose ranks hold shares of the loss); a plain tensor is
+    narrowed (a view; a tensor whose ``dim`` is not ``full`` long is
+    taken as already narrowed).  Mesh dims of one rank are never moved."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if isinstance(t, DTensor):
+        mesh, cur = t.device_mesh, t.placements
+        want, grad = [], []
+        for i, name in enumerate(mesh.mesh_dim_names):
+            if mesh.size(i) == 1:
+                want.append(cur[i])
+                grad.append(cur[i])
+                continue
+            keep = name == ctx.model_axis and dim is not None
+            want.append(Shard(dim % t.dim()) if keep else Replicate())
+            grad.append(Partial() if name in ctx.data_axes else want[-1])
+        if tuple(want) != tuple(cur):
+            t = t.redistribute(mesh, want)
+        return t.to_local(grad_placements=grad)
+    if dim is None or ctx.msize == 1:
+        return t
+    dim %= t.dim()
+    if full is not None and t.shape[dim] != full:
+        return t
+    n = t.shape[dim] // ctx.msize
+    return t.narrow(dim, ctx.model_rank * n, n)
+
+
+def _compute_params(cfg, flags: RunFlags, params, ctx: Optional[ShardCtx],
+                    heads: bool = True):
+    """Every leaf in the form this rank computes with (see the module
+    docstring): ``heads`` splits the attention heads and the dense MLPs
+    over the model axis (training); serving keeps them whole."""
+    if ctx is None:
+        return params
+    return unflatten(params, [
+        _compute_leaf(t, ctx, _split_dim(cfg, flags, ctx, p, t.dim(), heads))
+        for p, t in paths(params)])
+
+
 def make_loss_fn(cfg: ModelConfig, flags: RunFlags, ctx: Any = None):
+    """``loss_fn(params, batch) -> (loss, {"loss", "aux"})``.  Under
+    ``ctx`` the batch is the global one (every rank the same): each rank
+    takes its data shard's rows where the data axes divide the batch, and
+    the first value is this rank's share of the loss — the shares of the
+    data group sum to the loss, so autograd's gradients are shares too and
+    the DTensor parameters get their sum.  The metrics are global."""
     _check(cfg, ctx)
 
     def loss_fn(params, batch):
         params = cast_params(params, getattr(torch, flags.compute_dtype))
-        x, aux, _ = forward(cfg, params, batch, flags, ctx)
-        logits = lm_logits(cfg, params, x, ctx)
-        loss, _ = layers.softmax_cross_entropy(logits, batch["labels"],
-                                               batch.get("loss_mask"))
-        return loss + 0.01 * aux, {"loss": loss, "aux": aux}
+        if ctx is None:
+            x, aux, _ = forward(cfg, params, batch, flags, ctx)
+            logits = lm_logits(cfg, params, x, ctx)
+            loss, _ = layers.softmax_cross_entropy(logits, batch["labels"],
+                                                   batch.get("loss_mask"))
+            return loss + 0.01 * aux, {"loss": loss, "aux": aux}
+        params = _compute_params(cfg, flags, params, ctx)
+        split = ctx.splits_batch(batch["labels"].shape[0])
+        lctx = dataclasses.replace(ctx, rows_split=split)
+        if split:
+            batch = {k: comm.data_chunk(v, ctx) for k, v in batch.items()}
+        x, aux, _ = forward(cfg, params, batch, flags, lctx)
+        logits = lm_logits(cfg, params, x, lctx)
+        mask = batch.get("loss_mask")
+        if not split:                       # every data rank: all rows
+            loss, _ = layers.softmax_cross_entropy(logits, batch["labels"],
+                                                   mask)
+            share = loss / ctx.dsize
+        else:
+            nll = layers.token_nll(logits, batch["labels"])
+            if mask is None:
+                share = nll.sum() / (nll.numel() * ctx.dsize)
+            else:
+                denom = torch.clamp(comm.sum_data(mask.sum().float(), ctx),
+                                    min=1.0)
+                share = (nll * mask).sum() / denom
+        # aux: the global aux of the pjit layer (the same on every rank),
+        # or ep.py's (data shard 0's value, the data group's gradient)
+        total = share + 0.01 * aux / ctx.dsize
+        return total, {"loss": comm.sum_data(share, ctx), "aux": aux.detach()}
     return loss_fn
 
 
 def make_prefill_fn(cfg: ModelConfig, flags: RunFlags, ctx: Any,
                     max_len: int):
-    """Returns fn(params, batch) -> (last_logits (B,Vp), cache dict)."""
+    """Returns fn(params, batch) -> (last_logits (B,Vp), cache dict).
+    Under ``ctx`` every rank computes the whole batch and returns the
+    whole cache (the serving engine places it in ``decode_shardings``'
+    layout); the embedding, the logits and an expert-parallel moe layer
+    split their work over the model axis."""
     _check(cfg, ctx)
 
     @torch.no_grad()
     def prefill(params, batch):
         params = cast_params(params, getattr(torch, flags.compute_dtype))
+        params = _compute_params(cfg, flags, params, ctx, heads=False)
         x, _, parts = forward(cfg, params, batch, flags, ctx,
                               collect_cache=True)
         logits = lm_logits(cfg, params, x[:, -1:], ctx)[:, 0]
@@ -632,13 +995,15 @@ def make_decode_fn(cfg: ModelConfig, flags: RunFlags, ctx: Any = None):
     The token's k/v (dense, moe, vlm) or window entries (hybrid) are
     written into the given cache in place; the per-layer states are new
     tensors, as in the reference (they take the compute type).  The vlm's
-    cross k / v are read, never written."""
+    cross k / v are read, never written.  Under ``ctx`` the cache is the
+    whole one on every rank, as in ``make_prefill_fn``."""
     _check(cfg, ctx)
 
     @torch.no_grad()
     def decode(params, cache, tokens):
         cdt = getattr(torch, flags.compute_dtype)
-        params = cast_params(params, cdt)
+        params = _compute_params(cfg, flags, cast_params(params, cdt), ctx,
+                                 heads=False)
         B = tokens.shape[0]
         pos = cache["pos"]                                    # (B,)
         qpos = pos[:, None]

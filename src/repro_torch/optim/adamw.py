@@ -87,3 +87,77 @@ def adamw_update(cfg: AdamWConfig, params: Any, grads: Any,
         p.sub_(delta.mul_(lr).to(p.dtype))
     return params, {"m": opt["m"], "v": opt["v"], "step": step}, \
         {"lr": lr, "grad_norm": gnorm}
+
+
+def same_layout(mesh, a, b) -> bool:
+    """Whether two placement tuples put the same elements on every rank
+    (along a mesh dim of one rank every placement does)."""
+    return all(x == y or mesh.size(i) == 1
+               for i, (x, y) in enumerate(zip(a, b)))
+
+
+def to_layout(t, placements):
+    """The DTensor ``t`` in ``placements`` (no move where the layouts
+    already hold the same elements)."""
+    if same_layout(t.device_mesh, t.placements, placements):
+        return t
+    return t.redistribute(t.device_mesh, placements)
+
+
+def _replicas(t) -> int:
+    """How many ranks hold each element of the DTensor ``t``."""
+    from torch.distributed.tensor import Replicate
+    return math.prod(t.device_mesh.size(i) for i, pl in
+                     enumerate(t.placements) if isinstance(pl, Replicate))
+
+
+@torch.no_grad()
+def adamw_update_sharded(cfg: AdamWConfig, params: Any, grads: Any,
+                         opt: dict) -> Tuple[Any, dict, dict]:
+    """``adamw_update`` on DTensor leaves, each rank on its shards: the
+    same elementwise steps in the same order, the moments' layout for the
+    update (ZeRO), and the parameters brought back to their own layout
+    (an all-gather over the data axes where the two differ).  The global
+    norm sums each element once over the whole job."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    step = opt["step"]
+    if isinstance(step, DTensor):                   # replicated: in place
+        step.to_local().add_(1)
+        t_step = step.to_local()
+    else:
+        step = t_step = step + 1
+    lr = lr_schedule(cfg, t_step)
+    t = t_step.float()
+    bc1 = 1 - cfg.b1 ** t
+    bc2 = 1 - cfg.b2 ** t
+
+    ms, vs = _leaves(opt["m"]), _leaves(opt["v"])
+    gs = [to_layout(g, m.placements).to_local()
+          for g, m in zip(_leaves(grads), ms)]
+    sq = sum(g.float().square().sum() / _replicas(m)
+             for g, m in zip(gs, ms))
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        sq = sq.detach().clone()
+        dist.all_reduce(sq)
+    gn = torch.sqrt(sq)
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gn, min=1e-9), max=1.0)
+    for p, g, m, v in zip(_leaves(params), gs, ms, vs):
+        g.mul_(scale)
+        g = g.float()
+        ml, vl = m.to_local(), v.to_local()
+        ml.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
+        vl.mul_(cfg.b2).addcmul_(g, g, value=1 - cfg.b2)
+        pm = to_layout(p, m.placements).to_local()
+        delta = torch.sqrt(vl / bc2).add_(cfg.eps)
+        delta = torch.div(ml / bc1, delta).add_(pm.float(),
+                                                alpha=cfg.weight_decay)
+        delta = delta.mul_(lr).to(p.dtype)
+        if not same_layout(p.device_mesh, p.placements, m.placements):
+            delta = DTensor.from_local(
+                delta, m.device_mesh, m.placements, run_check=False,
+                shape=m.shape, stride=m.stride()).redistribute(
+                    p.device_mesh, p.placements).to_local()
+        p.to_local().sub_(delta)
+    return params, {"m": opt["m"], "v": opt["v"], "step": step}, \
+        {"lr": lr, "grad_norm": gn}

@@ -4,11 +4,11 @@ optimization trick), on trees of tensors.
 Blockwise symmetric int8 quantization with a persistent error-feedback
 buffer (EF21-style): the quantization residual is carried into the next
 step, so compression bias vanishes in expectation.  The reference's
-trainer reads ``grad_compression`` and applies nothing on one device; the
-port's trainer gains that option with the multi-device gradient reduction
-that applies it (ROADMAP queue A item 12).  ``torch.round`` rounds half to
-even, as ``jnp.round`` does, and every other step is one IEEE operation,
-so the values are the reference's bit for bit in fp32.
+trainer reads ``grad_compression`` and applies nothing, on one device or
+many; the port's trainer takes the option with the same effect (none),
+so nothing calls this module on the training path.  ``torch.round``
+rounds half to even, as ``jnp.round`` does, and every other step is one
+IEEE operation, so the values are the reference's bit for bit in fp32.
 """
 from __future__ import annotations
 

@@ -1,15 +1,18 @@
 """Trainer: train step + data pipeline + async checkpointing + failure
-recovery + straggler monitoring — the port of ``repro.runtime.trainer``
-on one device.
+recovery + straggler monitoring + elastic rescale — the port of
+``repro.runtime.trainer``.
 
 The control flow is deliberately firmware-shaped (FireBridge §IV-A): the
 host loop reads/writes a RegisterFile for run control (CTRL/STATUS/STEP/
 RESTARTS), so the register-protocol tests drive the trainer exactly like
-the paper's firmware drives its accelerator.  The reference's mesh and
-sharding context, elastic ``rescale`` and its ``grad_compression`` option
-wait for the multi-device item (ROADMAP queue A item 12): the int8
-error-feedback compression itself is ported (``optim/compress.py``), and
-the option comes with the gradient reduction whose wire it compresses.
+the paper's firmware drives its accelerator.
+
+With a mesh and a sharding context (every rank of the job runs the same
+Trainer) the state is placed by ``train_shardings(zero_level=1)`` and each
+step takes the same global batch on every rank (``make_train_step``).
+``rescale`` moves the state to another mesh over the same ranks.  The
+reference's ``grad_compression`` option is accepted and changes nothing,
+as in the reference (its step never applies ``optim/compress.py``).
 """
 from __future__ import annotations
 
@@ -24,15 +27,17 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch._tree import tree_map
 from repro_torch.checkpoint.manager import CheckpointManager
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.registers import RO, RegisterFile
 from repro_torch.data.pipeline import DataPipeline
 from repro_torch.data.synthetic import SyntheticLMDataset
 from repro_torch.launch import steps as steps_lib
-from repro_torch.models.transformer import RunFlags
+from repro_torch.models.transformer import RunFlags, ShardCtx
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.runtime.failures import (FailureInjector, SimulatedFailure,
                                           StragglerMonitor)
+from repro_torch.sharding.specs import (P, Sharding, param_specs, place,
+                                        to_shardings, whole_tree)
 
 
 @dataclasses.dataclass
@@ -45,6 +50,8 @@ class TrainerConfig:
     ckpt_keep: int = 3
     seed: int = 0
     log_path: Optional[str] = None
+    grad_compression: str = "none"        # none | int8_ef (a no-op, as in
+                                          # the reference)
     max_restarts: int = 3
 
 
@@ -52,12 +59,14 @@ class Trainer:
     def __init__(self, cfg: ModelConfig, tcfg: TrainerConfig,
                  flags: RunFlags = RunFlags(microbatches=1),
                  opt_cfg: AdamWConfig = AdamWConfig(),
+                 mesh=None, ctx: Optional[ShardCtx] = None,
                  failure_injector: Optional[FailureInjector] = None,
                  device: Union[str, torch.device] = "cuda"):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.tcfg = tcfg
         self.flags = flags
+        self.opt_cfg = opt_cfg
         self.injector = failure_injector
         self.straggler = StragglerMonitor()
         self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.ckpt_keep)
@@ -71,23 +80,42 @@ class Trainer:
         self.csr.define("STEP", 0x08, access=RO)
         self.csr.define("RESTARTS", 0x0C, access=RO)
 
-        self._step_fn = steps_lib.make_train_step(cfg, flags, None, opt_cfg)
+        self._set_mesh(mesh, ctx)
 
         self.dataset = SyntheticLMDataset(cfg.vocab_size, tcfg.seq_len,
                                           tcfg.global_batch, seed=tcfg.seed)
+
+    def _set_mesh(self, mesh, ctx: Optional[ShardCtx],
+                  state_shardings=None) -> None:
+        """The step function and the state's layout for ``mesh``."""
+        self.mesh, self.ctx = mesh, ctx
+        self._state_sh, gshard = state_shardings, None
+        if ctx is not None and state_shardings is None:
+            shape = ShapeConfig("train", self.tcfg.seq_len,
+                                self.tcfg.global_batch, "train")
+            _, self._state_sh, _, _, gshard = steps_lib.train_shardings(
+                self.cfg, shape, ctx.mesh, ctx, zero_level=1)
+        self._step_fn = steps_lib.make_train_step(
+            self.cfg, self.flags, ctx, self.opt_cfg, grad_shardings=gshard)
 
     # ------------------------------------------------------------------
     def init_state(self):
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.tcfg.seed)
-        return steps_lib.make_train_state(self.cfg, gen)
+        state = steps_lib.make_train_state(self.cfg, gen)
+        return state if self._state_sh is None else place(state,
+                                                          self._state_sh)
 
     def _resume_or_init(self):
+        if self.ctx is not None:
+            import torch.distributed as dist
+            dist.barrier()                  # rank 0's last write is in
         latest = self.ckpt.latest_step()
         if latest is None:
             return self.init_state(), 0
         like = steps_lib.train_state_shape(self.cfg)
-        state = self.ckpt.restore(latest, like, self.device)
+        state = self.ckpt.restore(latest, like, self.device,
+                                  shardings=self._state_sh)
         tree_map(lambda p: p.requires_grad_(), state["params"])
         return state, latest
 
@@ -149,4 +177,29 @@ class Trainer:
                 Path(self.tcfg.log_path).write_text(
                     "\n".join(json.dumps(r) for r in self.metrics_log))
         self.csr.hw_set("STATUS", 2)
+        if self.ctx is not None:
+            import torch.distributed as dist
+            dist.barrier()                  # rank 0's last write is in
         return state, step
+
+    # ------------------------------------------------------------------
+    def rescale(self, state, new_mesh, new_ctx: ShardCtx):
+        """Elastic rescale: checkpoint-free resharding onto a new mesh
+        (bound over the same ranks).  DTensor moves no tensor between two
+        meshes, so each leaf is gathered whole and placed again: params
+        and moments in the new mesh's ``param_specs`` layout, as the
+        reference does."""
+        st_shape = steps_lib.train_state_shape(self.cfg)
+        pspec = param_specs(self.cfg, st_shape["params"], new_mesh)
+        sh = to_shardings(pspec, new_mesh)
+        state = whole_tree(state)
+        new_state = {
+            "params": place(state["params"], sh),
+            "m": place(state["m"], sh),
+            "v": place(state["v"], sh),
+            "step": Sharding(new_mesh, P()).place(state["step"]),
+        }
+        step_sh = {"params": sh, "m": sh, "v": sh,
+                   "step": Sharding(new_mesh, P())}
+        self._set_mesh(new_mesh, new_ctx, state_shardings=step_sh)
+        return new_state

@@ -15,9 +15,14 @@ same for the same request stream.  Prefill and decode are plain callables
 ``jit_fns`` shares one pair of them across the device-local engines of a
 ``ClusterServingEngine``, as the reference shares its executables.
 ``profiler()`` and ``get_state`` / ``set_state`` serve the data-movement
-profiler and time-travel replay.  The cache and the parameters live on
-``device`` (default ``"cuda"``), and the argmax tokens come back to the
-host as in the reference.  For the ssm and hybrid families the prefill
+profiler and time-travel replay.  Under a sharding context (``ctx``) the
+parameters are placed by ``prefill_shardings`` (unless they are DTensors
+already) and the cache by ``decode_shardings``; prefill and decode run on
+the whole cache (see ``make_prefill_fn``), which goes back into its layout
+after each step (along mesh dims of one rank nothing is copied).  The
+cache and the parameters live on ``device`` (default ``"cuda"``), and the
+argmax tokens come back to the host as in the reference.  For the ssm and
+hybrid families the prefill
 runs the WKV-6 / SSD scan kernels; as in the reference, a prompt of those
 families should be a multiple of ``prompt_pad`` long, or the left padding
 perturbs the state.  A vlm prefill gets zero patch embeddings
@@ -34,15 +39,17 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch._tree import tree_map
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.bridge import MemoryBridge
 from repro_torch.core.congestion import CongestionConfig, CongestionResult
 from repro_torch.core.counters import CounterBank, CounterSpec
 from repro_torch.core.registers import RO, RegisterFile
+from repro_torch.launch.steps import decode_shardings, prefill_shardings
 from repro_torch.models.transformer import (RunFlags, cache_insert,
                                             init_cache, make_decode_fn,
                                             make_prefill_fn)
 from repro_torch.serving.kvpool import KVPool
+from repro_torch.sharding.specs import is_sharded, place, whole_tree
 
 CTRL, STATUS, DOORBELL = 0x00, 0x04, 0x08
 SUBMIT_ID, SUBMIT_LEN, SUBMIT_MAXNEW = 0x0C, 0x10, 0x14
@@ -111,6 +118,13 @@ class ServingEngine:
         # prefill) on the engine clock, in cycles
         self.step_cycles = float(step_cycles)
 
+        self._cache_sh = None
+        if ctx is not None:
+            shape = ShapeConfig("serve", max_len, max_slots, "decode")
+            if not is_sharded(params):
+                self.params = place(params, prefill_shardings(
+                    cfg, shape, ctx.mesh, ctx)[1])
+            self._cache_sh = decode_shardings(cfg, shape, ctx.mesh, ctx)[3]
         if jit_fns is not None:
             self._prefill, self._decode = jit_fns
         else:
@@ -136,8 +150,8 @@ class ServingEngine:
                 setattr(self, key, overrides.pop(key))
         if overrides:
             raise TypeError(f"unknown reset overrides: {sorted(overrides)}")
-        self.cache = init_cache(self.cfg, self.max_slots, self.max_len,
-                                device=self.device)
+        self.cache = self._keep_cache(init_cache(
+            self.cfg, self.max_slots, self.max_len, device=self.device))
         self.slots: List[Optional[Request]] = [None] * self.max_slots
         self.pending: deque[Request] = deque()
         self.requests: Dict[int, Request] = {}
@@ -289,9 +303,10 @@ class ServingEngine:
         logits, single = self._prefill(
             self.params,
             self._batchify({"tokens": torch.from_numpy(toks).to(self.device)}))
-        self.cache = cache_insert(self.cache, single, slot)
-        if pad_n and "kv_pos" in self.cache:
-            self.cache["kv_pos"][slot, :pad_n] = -1
+        cache = cache_insert(self._whole_cache(), single, slot)
+        if pad_n and "kv_pos" in cache:
+            cache["kv_pos"][slot, :pad_n] = -1
+        self.cache = self._keep_cache(cache)
         self.slots[slot] = req
         first = int(torch.argmax(logits[0]))
         req.out_tokens.append(first)
@@ -300,14 +315,23 @@ class ServingEngine:
         if len(req.out_tokens) >= req.max_new_tokens:
             self._retire(slot)
 
+    def _whole_cache(self) -> dict:
+        return self.cache if self._cache_sh is None else whole_tree(self.cache)
+
+    def _keep_cache(self, cache: dict) -> dict:
+        return cache if self._cache_sh is None else place(cache,
+                                                          self._cache_sh)
+
     def _decode_step(self) -> None:
         """One batched decode step over all occupied slots."""
         toks = np.zeros((self.max_slots,), np.int32)
         for i, s in enumerate(self.slots):
             if s is not None:
                 toks[i] = s.out_tokens[-1] % self.cfg.vocab_size
-        logits, self.cache = self._decode(
-            self.params, self.cache, torch.from_numpy(toks).to(self.device))
+        logits, cache = self._decode(
+            self.params, self._whole_cache(),
+            torch.from_numpy(toks).to(self.device))
+        self.cache = self._keep_cache(cache)
         nxt = torch.argmax(logits, dim=-1).cpu().numpy()
         for i, s in enumerate(self.slots):
             if s is None:

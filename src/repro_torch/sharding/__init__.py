@@ -1,2 +1,4 @@
-"""Sharding layouts of the port.  Only the fabric layouts are here so far
-(``specs.py``); the mesh / ZeRO layouts come with multi-device training."""
+"""Sharding layouts and the explicit SPMD of the port: the reference's
+specs and ZeRO layouts as DTensor placements (``specs.py``, with the
+fabric layouts), the collectives of the sharded paths (``comm.py``) and
+the expert-parallel MoE layer (``ep.py``)."""

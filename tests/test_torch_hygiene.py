@@ -63,7 +63,8 @@ def test_port_files_exist():
                  "runfarm/units.py", "runfarm/store.py",
                  "runfarm/manager.py", "runfarm/worker.py",
                  "runfarm/report.py", "runfarm/builtin.py",
-                 "optim/compress.py"):
+                 "optim/compress.py", "launch/mesh.py", "sharding/ep.py",
+                 "sharding/comm.py"):
         assert want in names
     for src in ("systolic_matmul", "flash_fwd", "flash_bwd", "ssd_scan",
                 "wkv_scan"):

@@ -268,22 +268,55 @@ def test_families_not_ported_raise_naming_the_roadmap(arch):
     assert torch.isfinite(loss) and torch.isfinite(aux["aux"])
 
 
+def _one_rank_ctx():
+    from repro_torch.launch.mesh import make_ctx, make_test_mesh
+    return make_ctx(make_test_mesh((1, 1)))
+
+
 @pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "hubert-xlarge",
                                   "llama-3.2-vision-11b"])
 def test_sharding_context_refused_naming_item_12(arch):
+    """Until the multi-device slice the three entry points refused any
+    context, naming ROADMAP queue A item 12, and this test held them to
+    that.  They take a ``ShardCtx`` now: under a one-rank context (mesh
+    (1, 1), no process group) the loss, the prefill and a decode step are
+    what they are without one, bit for bit.  What they refuse is a
+    context that is not a ``ShardCtx``."""
     cfg = smoke(get_config(arch))
+    params = tf.init_params(cfg, torch.Generator().manual_seed(0))
+    batch = inputs.make_train_batch(cfg, 2, 16,
+                                    torch.Generator().manual_seed(1))
+    flags = tf.RunFlags(compute_dtype="float32")
+    ctx = _one_rank_ctx()
+    want = tf.make_loss_fn(cfg, flags)(params, batch)
+    got = tf.make_loss_fn(cfg, flags, ctx)(params, batch)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1]["loss"], want[1]["loss"])
+    pre = {k: v for k, v in batch.items() if k != "labels"}
+    if cfg.frontend != "frames":
+        (lw, cw), (lg, cg) = (tf.make_prefill_fn(cfg, flags, c, 24)(params,
+                                                                    pre)
+                              for c in (None, ctx))
+        assert torch.equal(lg, lw)
+        tok = torch.tensor([3, 5], dtype=torch.int32)
+        dw = tf.make_decode_fn(cfg, flags)(params, cw, tok)[0]
+        dg = tf.make_decode_fn(cfg, flags, ctx)(params, cg, tok)[0]
+        assert torch.equal(dg, dw)
     for build in (lambda: tf.make_loss_fn(cfg, tf.RunFlags(), ctx=object()),
                   lambda: tf.make_prefill_fn(cfg, tf.RunFlags(), object(), 32),
                   lambda: tf.make_decode_fn(cfg, tf.RunFlags(), object())):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue A item 12"):
+        with pytest.raises(TypeError, match="ShardCtx"):
             build()
 
 
 def test_sharding_context_is_refused():
+    """The port ran on one device and refused any context until the
+    multi-device slice; this test held it to that.  It refuses a context
+    that is not a ``ShardCtx`` now, and takes a one-rank one."""
     cfg = smoke(get_config(ARCH))
-    with pytest.raises(NotImplementedError, match="one device"):
+    with pytest.raises(TypeError, match="ShardCtx"):
         tf.make_loss_fn(cfg, tf.RunFlags(), ctx=object())
+    assert callable(tf.make_loss_fn(cfg, tf.RunFlags(), ctx=_one_rank_ctx()))
 
 
 @pytest.mark.parametrize("arch", [ARCH, "hubert-xlarge",

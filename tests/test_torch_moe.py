@@ -195,8 +195,12 @@ def test_moe_block_sequence_chunks_match_reference(chunk):
 
 
 def test_moe_block_refuses_sharding_context():
-    """A sharding context has no counterpart yet: ``moe_block`` refuses it,
-    naming queue A item 12, and runs without one."""
+    """``moe_block`` takes a sharding context now (it refused one until the
+    multi-device slice, and this test held it to that): under a one-rank
+    context (mesh (1, 1), no process group) both ``moe_mode``s give what
+    ``ctx=None`` gives, bit for bit.  What it still refuses is a context
+    that is not a ``ShardCtx``."""
+    from repro_torch.launch.mesh import make_ctx, make_test_mesh
     rcfg, cfg = _cfgs("moonshot-v1-16b-a3b")
     w = ref_moe.moe_init(jax.random.PRNGKey(4), rcfg, 1, jnp.float32)
     tw = params_from_reference(jax.tree.map(lambda a: np.asarray(a[0]), w),
@@ -207,5 +211,10 @@ def test_moe_block_refuses_sharding_context():
     y, aux = tf.moe_block(cfg, tf.RunFlags(), None, tw, ln, x)
     assert y.shape == x.shape and torch.isfinite(y).all()
     assert torch.isfinite(aux)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    ctx = make_ctx(make_test_mesh((1, 1)))
+    for mode in ("pjit", "ep_shardmap"):
+        y1, aux1 = tf.moe_block(cfg, tf.RunFlags(moe_mode=mode), ctx, tw, ln,
+                                x)
+        assert torch.equal(y1, y) and torch.equal(aux1, aux), mode
+    with pytest.raises(TypeError, match="ShardCtx"):
         tf.moe_block(cfg, tf.RunFlags(), object(), tw, ln, x)
