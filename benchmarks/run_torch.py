@@ -7,9 +7,10 @@ The wall-clock gates (profiling and counter overhead, the window replay's
 speed-up) are read from their benchmark's rows by its ``gate()``, which
 adds a verdict row; ``main()`` exits 1 when one does not hold.
 
-``benchmarks/roofline.py``'s tables (``roofline_tables`` in
-``benchmarks/run.py``) are not here: they read the HLO profiler of the
-multi-device launch path, which the port does not have yet.
+``roofline_tables`` renders ``benchmarks/roofline_torch.py``'s two tables
+from the dry-run records that ``python -m repro_torch.launch.dryrun``
+wrote (none yet: empty tables); it reads JSON and runs nothing on the
+device.
 
     PYTHONPATH=src:. python benchmarks/run_torch.py [--device cpu]
 """
@@ -88,7 +89,20 @@ def entries(device) -> list[tuple]:
          lambda: bench_runfarm_torch.run(device), None),
         ("serving_slo",                                     # quick mode
          lambda: bench_serving_torch.run(device), None),
+        ("roofline_tables", _roofline, None),
     ]
+
+
+def _roofline() -> list[str]:
+    from benchmarks import roofline_torch
+    recs = roofline_torch.load("baseline")
+    ART.mkdir(parents=True, exist_ok=True)
+    (ART / "dryrun_table.md").write_text(
+        roofline_torch.render_dryrun_table(recs))
+    (ART / "roofline_table.md").write_text(
+        roofline_torch.render_roofline_table(recs))
+    return [f"roofline,baseline_cells,{len(recs)}",
+            "roofline,tables,dryrun_table.md;roofline_table.md"]
 
 
 def main(argv=None) -> int:

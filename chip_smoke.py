@@ -101,7 +101,19 @@ card, and drives the port's paths:
     one profiled beside an engine without a context); then two spawned
     ranks sharing ``cuda:0`` over gloo (mesh data 1 x model 2): the
     expert-parallel moonshot layer against the unsplit one, and the
-    vocab-parallel embedding bit for bit.
+    vocab-parallel embedding bit for bit;
+  * dryrun — the dry run (``launch/dryrun.py``, ``core/hlo_profiler.py``)
+    against the card: llama3.2-1b's train step at train_llama's batch with
+    the dry run's flags (``chunked``, one microbatch, remat) counted by
+    ``ProgramCounter`` on the card and on meta tensors (FLOPs, traffic and
+    dot count must be equal), timed (median of 5) against its roofline
+    bound at the card's peaks, and the meta run's peak memory against
+    ``torch.cuda.max_memory_allocated`` (it may not fall below 0.9 of it);
+    then two production-size cells of the dry run (llama3.2-1b /
+    train_4k and rwkv6-7b / prefill_32k on the 16 x 16 mesh, 256 fake
+    ranks), run on no card in two processes started at the top of the
+    script, with their wall times, and ``benchmarks/roofline_torch.py``'s
+    tables over their records.
 
 Every line of standard output is one JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure (no CUDA device, a build or
@@ -110,8 +122,9 @@ a failed fuzz scenario, an open protocol bin, a digest that does not repeat,
 a sweep that fails or whose rows depend on its worker count, an
 attribution that does not close, a replay that does not repeat its
 recording, a non-finite loss, a wrong launch count, a ``torch.compile``
-recompile limit hit) ends the run with a non-zero exit code and no last
-line.
+recompile limit hit, a dry-run count that is not the card's, a memory
+estimate below 0.9 of the card's peak, a dry-run cell that fails) ends the
+run with a non-zero exit code and no last line.
 """
 from __future__ import annotations
 
@@ -119,6 +132,7 @@ import dataclasses
 import gc
 import hashlib
 import json
+import os
 import re
 import shutil
 import statistics
@@ -141,12 +155,13 @@ from benchmarks.bench_debug_iteration_torch import (
 from repro_torch import goldens
 from repro_torch._device import true_fp32
 from repro_torch._tree import leaves, tree_map
-from repro_torch.configs import get_config, smoke
+from repro_torch.configs import ShapeConfig, get_config, smoke
 from repro_torch.core import (FABRIC_LINK, CATEGORIES, CongestionConfig,
                               CoVerifySession, DataMovementProfiler,
                               FabricCluster, FaultPlan, FireBridge,
                               FuzzReport, ProtocolFuzzer, compare_outputs,
                               coverify, validate_trace)
+from repro_torch.core import hlo_profiler as hp
 from repro_torch.core import replay as replay_mod
 from repro_torch.core.fuzz import (Scenario, _default_engine,
                                    planted_bug_table)
@@ -169,6 +184,7 @@ from repro_torch.kernels.systolic_matmul import ref as MMref
 from repro_torch.kernels.systolic_matmul.sweep import (matmul_backends,
                                                        matmul_fabric_firmware,
                                                        matmul_firmware)
+from repro_torch.launch import dryrun
 from repro_torch.launch import steps as steps_lib
 from repro_torch.launch.steps import make_train_state, make_train_step
 from repro_torch.models import moe as moe_lib
@@ -186,9 +202,9 @@ from repro_torch.serving import Request, ServingEngine
 # operands could go through them as TF32, so the function's 2MNK is held
 # to the TF32 rate.
 PEAK_FLOPS = {"float32": ("fp32_fma_67_TFLOPs", 67e12),
-              "bfloat16": ("bf16_tensor_989_TFLOPs", 989e12),
+              "bfloat16": ("bf16_tensor_989_TFLOPs", hp.PEAK_FLOPS_BF16),
               "tf32": ("tf32_tensor_494.7_TFLOPs", 494.7e12)}
-PEAK_BYTES = ("hbm_3.35_TBps", 3.35e12)
+PEAK_BYTES = ("hbm_3.35_TBps", hp.HBM_BW)
 
 CONG = dict(dos_prob=0.05, seed=7)
 MM_MAIN_CFG = dict(size=4096, tile=128)          # coverify_matmul
@@ -3551,6 +3567,187 @@ def phase_sharded(card: str) -> dict:
             "serve_flash_fwd": serve["launches"]["flash_fwd"]}
 
 
+# ----------------------------------------------------------------- dryrun
+# the dry run (launch/dryrun.py) against the card: llama3.2-1b's train step
+# at train_llama's batch with the dry run's flags, counted on the card and
+# on meta tensors; the step timed against its roofline bound; the meta
+# run's peak against the allocator's; and two production-size cells of the
+# dry run, started in subprocesses at the top of the script (they need no
+# card) and collected here
+DRYRUN_FLAGS = RunFlags(attn_impl="chunked", microbatches=1, remat=True)
+DRYRUN_CELLS = (("llama3.2-1b", "train_4k"), ("rwkv6-7b", "prefill_32k"))
+DRYRUN_TAG = "chip_smoke"
+DRYRUN_TIMED = 5
+MEM_FLOOR = 0.9          # the estimate may not fall below 0.9 x the peak
+
+
+def start_dryrun_cells() -> list:
+    """The dry run's production cells, one process each, all at once; no
+    card (CUDA_VISIBLE_DEVICES empty), one thread each."""
+    import atexit
+    import threading
+    log_dir = _build.BUILD_DIR / "dryrun"
+    log_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        log = open(log_dir / f"{arch}__{shape}.log", "w")
+        p = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+             "--shape", shape, "--tag", DRYRUN_TAG],
+            cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+        cell = {"arch": arch, "shape": shape, "proc": p, "log": log,
+                "t0": time.perf_counter()}
+        # the moment the process ends (its wall time), whenever it is read
+        cell["waiter"] = threading.Thread(
+            target=lambda c=cell: (c["proc"].wait(),
+                                   c.__setitem__("t1", time.perf_counter())),
+            daemon=True)
+        cell["waiter"].start()
+        procs.append(cell)
+    atexit.register(lambda: [c["proc"].kill() for c in procs
+                             if c["proc"].poll() is None])
+    return procs
+
+
+def first_difference(a: list, b: list):
+    """The first (index, entry of a, entry of b) where two op logs part,
+    over the ops that cost FLOPs or bytes."""
+    a = [e for e in a if e[2] or e[3]]
+    b = [e for e in b if e[2] or e[3]]
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i, x, y
+    return (min(len(a), len(b)), a[len(b):][:1], b[len(a):][:1]) \
+        if len(a) != len(b) else None
+
+
+def phase_dryrun(card: str, procs: list) -> dict:
+    t_phase = time.perf_counter()
+    gc.collect()                      # earlier phases' cycles hold tensors
+    torch.cuda.empty_cache()
+    cfg = get_config(LLAMA["arch"])
+    shape = ShapeConfig("train_llama", LLAMA["seq_len"], LLAMA["global_batch"],
+                        "train")
+    opt = AdamWConfig(lr=1e-3, warmup_steps=20, total_steps=10)
+    step = make_train_step(cfg, DRYRUN_FLAGS, None, opt)
+    gen = torch.Generator(device="cuda").manual_seed(LLAMA["seed"])
+    state = make_train_state(cfg, gen)
+    data = SyntheticLMDataset(cfg.vocab_size, LLAMA["seq_len"],
+                              LLAMA["global_batch"], seed=LLAMA["seed"])
+    batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch(0).items()}
+
+    # (a) the step on meta tensors, then on the card, both counted
+    meta = lambda t: t.detach().to("meta").requires_grad_(t.requires_grad)
+    m_state, m_batch = tree_map(meta, state), tree_map(meta, batch)
+    t0 = time.perf_counter()
+    est = hp.ProgramCounter(log_ops=True)
+    est_args = est.track(m_state, m_batch)
+    with est:
+        step(m_state, m_batch)
+    meta_s = time.perf_counter() - t0
+    del m_state, m_batch
+    args_bytes = hp.ProgramCounter().track(state, batch)
+    # collected now, no earlier garbage is freed inside the measured step
+    # (which would lower its peak against the base)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    real = hp.ProgramCounter(log_ops=True)
+    with real:
+        state, m = step(state, batch)
+    torch.cuda.synchronize()
+    measured_peak = torch.cuda.max_memory_allocated() - base + args_bytes
+    pe, pr = est.profile(), real.profile()
+    count = {"meta": {"flops": pe.flops, "traffic_bytes": pe.traffic_bytes,
+                      "dot_count": pe.dot_count, "ops": len(est.ops),
+                      "seconds": meta_s},
+             "cuda": {"flops": pr.flops, "traffic_bytes": pr.traffic_bytes,
+                      "dot_count": pr.dot_count, "ops": len(real.ops)},
+             "flop_counter_flops": {"meta": est.flop_counter_flops,
+                                    "cuda": real.flop_counter_flops}}
+    emit({"phase": "dryrun", "part": "count", "card": card,
+          "config": LLAMA["arch"], "seq_len": LLAMA["seq_len"],
+          "batch": LLAMA["global_batch"],
+          "flags": dataclasses.asdict(DRYRUN_FLAGS), **count})
+    if (pe.flops, pe.traffic_bytes, pe.dot_count) != \
+            (pr.flops, pr.traffic_bytes, pr.dot_count):
+        fail(f"dryrun: the meta count is not the card's: {count}; first "
+             f"difference {first_difference(est.ops, real.ops)}")
+    if not np.isfinite(float(m["loss"])):
+        fail(f"dryrun: non-finite loss {m}")
+
+    # (b) the measured step against its roofline bound
+    times = []
+    for i in range(DRYRUN_TIMED + 1):
+        b = {k: torch.from_numpy(v).cuda()
+             for k, v in data.batch(i + 1).items()}
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, m = step(state, b)
+        e1.record()
+        torch.cuda.synchronize()
+        if i:                                   # the first one warms up
+            times.append(e0.elapsed_time(e1) / 1e3)
+    terms = hp.roofline(pr, dryrun.model_flops(cfg, shape, "train"))
+    step_s = statistics.median(times)
+    emit({"phase": "dryrun", "part": "roofline", "card": card,
+          "step_s_median": step_s, "step_s": times,
+          "terms": dataclasses.asdict(terms), "dominant": terms.dominant,
+          "bound_s": terms.bound_s, "measured_over_bound": step_s /
+          terms.bound_s, "useful_ratio": terms.useful_ratio,
+          "roofline_fraction": terms.roofline_fraction,
+          "peaks": {"bf16_flops": hp.PEAK_FLOPS_BF16, "hbm_bytes_s": hp.HBM_BW,
+                    "nvlink_bytes_s": hp.NVLINK_BW}})
+
+    # (c) the meta run's peak against the allocator's
+    memory = {"estimate_peak_bytes": est.peak_bytes,
+              "estimate_args_bytes": est_args,
+              "measured_peak_bytes": measured_peak, "args_bytes": args_bytes,
+              "estimate_over_measured": est.peak_bytes / measured_peak,
+              "floor": MEM_FLOOR}
+    emit({"phase": "dryrun", "part": "memory", "card": card, **memory})
+    if est.peak_bytes < MEM_FLOOR * measured_peak:
+        fail(f"dryrun: the memory estimate under-counts: {memory}")
+    del state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the production cells, then the roofline twin over their records
+    cells = []
+    for c in procs:
+        rc = c["proc"].wait(timeout=900)
+        c["waiter"].join()
+        c["log"].close()
+        wall = c["t1"] - c["t0"]
+        path = dryrun.ART_DIR / (f"{c['arch']}__{c['shape']}__1pod__"
+                                 f"{DRYRUN_TAG}.json")
+        if rc != 0 or not path.exists():
+            fail(f"dryrun: cell {c['arch']}/{c['shape']} rc={rc}: "
+                 f"{(_build.BUILD_DIR / 'dryrun').as_posix()}")
+        rec = json.loads(path.read_text())
+        cells.append(rec)
+        emit({"phase": "dryrun", "part": "cell", "arch": c["arch"],
+              "shape": c["shape"], "mesh": rec["mesh"], "world": rec["world"],
+              "process_wall_s": wall, "lower_s": rec["lower_s"],
+              "compile_s": rec["compile_s"], "zero_level": rec["zero_level"],
+              "microbatches": rec["flags"]["microbatches"],
+              "memory_analysis": rec["memory_analysis"],
+              "profile": {k: v for k, v in rec["profile"].items()
+                          if k != "warnings"},
+              "roofline": rec["roofline"]})
+    from benchmarks import roofline_torch
+    emit({"phase": "dryrun", "part": "tables",
+          "dryrun_table": roofline_torch.render_dryrun_table(cells),
+          "roofline_table": roofline_torch.render_roofline_table(cells),
+          "seconds": time.perf_counter() - t_phase})
+    return {"cells": len(cells)}
+
+
+
 def kernel_entry(name, sources, replaces, main_row, rows, launches,
                  path_rows=None) -> dict:
     """``sources`` names the file with the kernel's C entry point first,
@@ -3602,6 +3799,7 @@ def main() -> int:
         if hasattr(torch._dynamo.config, name):
             setattr(torch._dynamo.config, name, 64)
     card = phase_env()
+    dryrun_procs = start_dryrun_cells()
     phase_build()
     mm_rows, fa_rows, dkdv_rows, dq_rows, wkv_rows, ssd_rows = phase_kernels()
     mm_launches = phase_coverify_matmul(card, mm_rows)
@@ -3626,6 +3824,7 @@ def main() -> int:
     vlm = phase_serve(card, "llama-3.2-vision-11b")
     moe = phase_serve(card, "moonshot-v1-16b-a3b")
     sharded = phase_sharded(card)
+    phase_dryrun(card, dryrun_procs)
     if mm_launches < 1 or fa_launches < 1 or fuzz_launches < 1 or \
             min(fabric.values()) < 1 or min(sweep.values()) < 1 or \
             replay_launches < 1 or profile_launches < 1 or \

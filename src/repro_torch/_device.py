@@ -31,13 +31,20 @@ def to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
 
+def same_device(name: str, *ts: torch.Tensor) -> torch.device:
+    """The one device of an op's operands; raises for operands on
+    different devices."""
+    dev = ts[0].device
+    if any(t.device != dev for t in ts):
+        raise ValueError(f"{name}: operands on different devices")
+    return dev
+
+
 def on_cpu(name: str, *ts: torch.Tensor) -> bool:
     """The route of a kernel wrapper: True for CPU tensors (its plain
     version), False for CUDA tensors (its kernel); raises for any other
     device or for operands on different devices."""
-    dev = ts[0].device
-    if any(t.device != dev for t in ts):
-        raise ValueError(f"{name}: operands on different devices")
+    dev = same_device(name, *ts)
     if dev.type == "cpu":
         return True
     if dev.type != "cuda":

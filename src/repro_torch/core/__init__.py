@@ -23,6 +23,9 @@
   replay        — time-travel replay + divergence bisection
   profiler      — off-chip data-movement profiling: exhaustive stall
                   attribution, Perfetto export (§IV)
+  hlo_profiler  — a program's FLOPs, traffic and collective bytes (the
+                  reference's HLO parser, and a dispatcher op counter for
+                  the port's programs) + roofline terms at one H100's peaks
 """
 from repro_torch.core.bridge import Buffer, FireBridge, MemoryBridge
 from repro_torch.core.congestion import (CongestionConfig, CongestionResult,

@@ -5,13 +5,16 @@ the tensor cores) and its plain PyTorch version.
 Layout: x (B, L, H, P) and B_/C_ (B, L, N) of one type (fp32 or bf16),
 dt (B, L, H), A/D (H,) fp32; results y (B, L, H, P) fp32 — the ``D`` skip
 included — and the final state (B, H, P, N) fp32, from a zero state.
-``ssd_scan`` launches the kernel for CUDA tensors (or raises) and takes
-``ssd_scan_plain`` only for tensors that lie on the CPU.  ``chunk`` sets
-the chunk length of the chunked arithmetic on both routes; ``hb`` keeps
+``ssd_scan`` calls the dispatcher op ``repro_torch::ssd_scan``, whose CUDA
+implementation launches the kernel (or raises) and whose CPU
+implementation is ``ssd_scan_plain``: the dispatcher picks by the tensors'
+device; on meta or fake tensors (the dry run) the op is one call of known
+output shapes, and on any other device the dispatcher raises.  ``chunk``
+sets the chunk length of the chunked arithmetic on both routes; ``hb`` keeps
 the reference's head-block contract, which defines the modeled burst list
 (``ops.transactions``) and nothing numeric.  The kernel has no backward
-(neither has the reference's): called directly, it refuses CUDA inputs
-that require a gradient; ``ops.ssd_scan`` differentiates it by recompute.
+(neither has the reference's): called directly, it refuses inputs that
+require a gradient; ``ops.ssd_scan`` differentiates it by recompute.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch._device import on_cpu, true_fp32
+from repro_torch._device import same_device, true_fp32
 from repro_torch.kernels import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -113,21 +116,9 @@ def _lib():
     return lib
 
 
-def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
-             C_: torch.Tensor, A: torch.Tensor, D: torch.Tensor, *,
-             chunk: int = 128, hb: int = 8
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B,L,H,P); dt (B,L,H); B_/C_ (B,L,N); A/D (H,) -> (y (B,L,H,P)
-    fp32, final state (B,H,P,N) fp32).  CUDA tensors go through the
-    hand-written kernel; CPU tensors through ``ssd_scan_plain``."""
-    global launches
-    Bsz, L, H, P, N, cl, hb = _shapes(x, dt, B_, C_, A, D, chunk, hb)
-    ts = (x, dt, B_, C_, A, D)
-    if on_cpu("ssd_scan", *ts):
-        return ssd_scan_plain(x, dt, B_, C_, A, D, chunk=chunk, hb=hb)
-    if any(t.requires_grad for t in ts) and torch.is_grad_enabled():
-        raise RuntimeError("the raw ssd_scan kernel has no backward: call "
-                           "ops.ssd_scan, which differentiates by recompute")
+def _check_kernel_operands(ts, cl: int, P: int, N: int) -> None:
+    """What the kernel takes (the data's alignment is checked at launch)."""
+    x, dt, B_, C_, A, D = ts
     if x.dtype not in _DTYPES or B_.dtype != x.dtype or C_.dtype != x.dtype \
             or any(t.dtype != torch.float32 for t in (dt, A, D)):
         raise TypeError(f"ssd_scan kernel takes x/B_/C_ of one type (float32 "
@@ -140,6 +131,24 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
                          f"chunk={cl}, P={P}, N={N}")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("kernel takes contiguous tensors")
+
+
+@torch.library.custom_op(
+    "repro_torch::ssd_scan", mutates_args=(), device_types="cpu",
+    schema="(Tensor x, Tensor dt, Tensor B_, Tensor C_, Tensor A, Tensor D, "
+           "int chunk, int hb) -> (Tensor, Tensor)")
+def _ssd_op(x, dt, B_, C_, A, D, chunk, hb):
+    """The op's CPU implementation: the plain version."""
+    return ssd_scan_plain(x, dt, B_, C_, A, D, chunk=chunk, hb=hb)
+
+
+@_ssd_op.register_kernel("cuda")
+def _ssd_launch(x, dt, B_, C_, A, D, chunk, hb):
+    """The op's CUDA implementation: the kernel, or an error."""
+    global launches
+    Bsz, L, H, P, N, cl, hb = _shapes(x, dt, B_, C_, A, D, chunk, hb)
+    ts = (x, dt, B_, C_, A, D)
+    _check_kernel_operands(ts, cl, P, N)
     if any(t.data_ptr() % 16 for t in (x, B_, C_)):
         raise ValueError("kernel takes x, B_ and C_ whose data starts on a "
                          "16-byte boundary (vector loads)")
@@ -159,3 +168,30 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
         raise RuntimeError(f"ssd_scan launch refused: CUDA error {err}")
     launches += 1
     return y, st
+
+
+@_ssd_op.register_fake
+def _ssd_shapes(x, dt, B_, C_, A, D, chunk, hb):
+    """Output shapes and types (meta and fake tensors), with the kernel's
+    contract on CUDA."""
+    Bsz, L, H, P, N, cl, hb = _shapes(x, dt, B_, C_, A, D, chunk, hb)
+    if x.device.type == "cuda":
+        _check_kernel_operands((x, dt, B_, C_, A, D), cl, P, N)
+    return (x.new_empty((Bsz, L, H, P), dtype=torch.float32),
+            x.new_empty((Bsz, H, P, N), dtype=torch.float32))
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
+             C_: torch.Tensor, A: torch.Tensor, D: torch.Tensor, *,
+             chunk: int = 128, hb: int = 8
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B,L,H,P); dt (B,L,H); B_/C_ (B,L,N); A/D (H,) -> (y (B,L,H,P)
+    fp32, final state (B,H,P,N) fp32).  CUDA tensors go through the
+    hand-written kernel; CPU tensors through ``ssd_scan_plain``."""
+    _shapes(x, dt, B_, C_, A, D, chunk, hb)
+    ts = (x, dt, B_, C_, A, D)
+    same_device("ssd_scan", *ts)
+    if any(t.requires_grad for t in ts) and torch.is_grad_enabled():
+        raise RuntimeError("the raw ssd_scan kernel has no backward: call "
+                           "ops.ssd_scan, which differentiates by recompute")
+    return torch.ops.repro_torch.ssd_scan(x, dt, B_, C_, A, D, chunk, hb)

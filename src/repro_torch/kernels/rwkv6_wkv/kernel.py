@@ -3,9 +3,12 @@
 
 Layout: r/k/v/w (B, L, H, K) with w the per-step decay in (0, 1), u (H, K);
 results y (B, L, H, K) fp32 and the final state (B, H, K, K) fp32, the
-recurrence starting from a zero state.  ``wkv_scan`` launches the kernel
-for CUDA tensors (or raises) and takes ``wkv_scan_plain`` only for tensors
-that lie on the CPU.  ``chunk``/``hb`` keep the reference's clamping and
+recurrence starting from a zero state.  ``wkv_scan`` calls the dispatcher
+op ``repro_torch::wkv_scan``, whose CUDA implementation launches the kernel
+(or raises) and whose CPU implementation is ``wkv_scan_plain``: the
+dispatcher picks by the tensors' device; on meta or fake tensors (the dry
+run) the op is one call of known output shapes, and on any other device
+the dispatcher raises.  ``chunk``/``hb`` keep the reference's clamping and
 divisibility contract, since they define the modeled burst list
 (``ops.transactions``).  The kernel cuts L into chunks of its own
 (``kernel_chunk``): each chunk's own state in parallel, a short pass that
@@ -13,8 +16,8 @@ sums them into the state entering each chunk, then each chunk's exact step
 walk from that state.  Only the incoming states are summed in another
 order than the reference's, which changes nothing but fp32 rounding.  The
 kernel has no backward (neither has the reference's): called directly, it
-refuses CUDA inputs that require a gradient; ``ops.wkv_scan``
-differentiates it by recompute.
+refuses inputs that require a gradient; ``ops.wkv_scan`` differentiates it
+by recompute.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch._device import on_cpu, true_fp32
+from repro_torch._device import same_device, true_fp32
 from repro_torch.kernels import _build
 
 _HEAD_SIZES = (16, 32, 64, 128)
@@ -99,28 +102,36 @@ def _lib():
     return lib
 
 
-def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             w: torch.Tensor, u: torch.Tensor, *, chunk: int = 16,
-             hb: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
-    """r/k/v/w (B,L,H,K); u (H,K) -> (y (B,L,H,K) fp32, final state
-    (B,H,K,K) fp32).  CUDA tensors go through the hand-written kernel; CPU
-    tensors through ``wkv_scan_plain``."""
-    global launches
-    B, L, H, K, cl, hb = _shapes(r, k, v, w, u, chunk, hb)
-    ts = (r, k, v, w, u)
-    if on_cpu("wkv_scan", *ts):
-        return wkv_scan_plain(r, k, v, w, u, chunk=chunk, hb=hb)
-    if any(t.requires_grad for t in ts) and torch.is_grad_enabled():
-        raise RuntimeError("the raw wkv_scan kernel has no backward: call "
-                           "ops.wkv_scan, which differentiates by recompute")
+def _check_kernel_operands(ts, K: int) -> None:
+    """What the kernel takes (the data's alignment is checked at launch)."""
     if any(t.dtype != torch.float32 for t in ts):
         raise TypeError(f"wkv_scan kernel takes float32 r/k/v/w/u, got "
                         f"{[t.dtype for t in ts]}")
     if K not in _HEAD_SIZES:
         raise ValueError(f"kernel is built for head sizes {_HEAD_SIZES}, "
                          f"got {K}")
-    if not all(t.is_contiguous() for t in ts) or any(
-            t.data_ptr() % 16 for t in (r, k, w)):
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("kernel takes contiguous tensors, r/k/w 16-byte "
+                         "aligned")
+
+
+@torch.library.custom_op(
+    "repro_torch::wkv_scan", mutates_args=(), device_types="cpu",
+    schema="(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, int chunk, "
+           "int hb) -> (Tensor, Tensor)")
+def _wkv_op(r, k, v, w, u, chunk, hb):
+    """The op's CPU implementation: the plain version."""
+    return wkv_scan_plain(r, k, v, w, u, chunk=chunk, hb=hb)
+
+
+@_wkv_op.register_kernel("cuda")
+def _wkv_launch(r, k, v, w, u, chunk, hb):
+    """The op's CUDA implementation: the kernel, or an error."""
+    global launches
+    B, L, H, K, _, _ = _shapes(r, k, v, w, u, chunk, hb)
+    ts = (r, k, v, w, u)
+    _check_kernel_operands(ts, K)
+    if any(t.data_ptr() % 16 for t in (r, k, w)):
         raise ValueError("kernel takes contiguous tensors, r/k/w 16-byte "
                          "aligned")
     lib = _lib()
@@ -139,3 +150,29 @@ def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"wkv_scan launch refused: CUDA error {err}")
     launches += 1
     return y, st
+
+
+@_wkv_op.register_fake
+def _wkv_shapes(r, k, v, w, u, chunk, hb):
+    """Output shapes and types (meta and fake tensors), with the kernel's
+    contract on CUDA."""
+    B, L, H, K, _, _ = _shapes(r, k, v, w, u, chunk, hb)
+    if r.device.type == "cuda":
+        _check_kernel_operands((r, k, v, w, u), K)
+    return (r.new_empty((B, L, H, K), dtype=torch.float32),
+            r.new_empty((B, H, K, K), dtype=torch.float32))
+
+
+def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, u: torch.Tensor, *, chunk: int = 16,
+             hb: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """r/k/v/w (B,L,H,K); u (H,K) -> (y (B,L,H,K) fp32, final state
+    (B,H,K,K) fp32).  CUDA tensors go through the hand-written kernel; CPU
+    tensors through ``wkv_scan_plain``."""
+    _shapes(r, k, v, w, u, chunk, hb)
+    ts = (r, k, v, w, u)
+    same_device("wkv_scan", *ts)
+    if any(t.requires_grad for t in ts) and torch.is_grad_enabled():
+        raise RuntimeError("the raw wkv_scan kernel has no backward: call "
+                           "ops.wkv_scan, which differentiates by recompute")
+    return torch.ops.repro_torch.wkv_scan(r, k, v, w, u, chunk, hb)

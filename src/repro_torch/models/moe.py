@@ -100,7 +100,10 @@ def moe_apply(w: dict, x: torch.Tensor, cfg: ModelConfig
     order = torch.argsort(e_flat, stable=True)
     se, st, sw = e_flat[order], t_flat[order], w_flat[order]
     # position of each routed token within its expert segment
-    counts = torch.bincount(e_flat, minlength=E)                 # (E,)
+    # bincount's count with a static shape (bincount's length follows the
+    # data, so it waits for the device and cannot be traced)
+    counts = torch.zeros(E, dtype=torch.long, device=dev).scatter_add_(
+        0, e_flat, torch.ones_like(e_flat))                      # (E,)
     seg_start = torch.cumsum(counts, 0) - counts                 # exclusive
     pos_in_e = torch.arange(T * k, device=dev) - seg_start[se]
     keep = pos_in_e < C

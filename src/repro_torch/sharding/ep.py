@@ -54,7 +54,8 @@ def _local_moe(x, router_w, wg, wu, wd, *, cfg, ctx, n_local: int):
     C = moe_lib.capacity(cfg, T)                              # per expert
     order = torch.argsort(loc, stable=True)                   # parked last
     sl, st, sw, sm = loc[order], t_flat[order], w_flat[order], mine[order]
-    counts = torch.bincount(loc, minlength=n_local + 1)
+    counts = torch.zeros(n_local + 1, dtype=torch.long,
+                         device=dev).scatter_add_(0, loc, torch.ones_like(loc))
     seg_start = torch.cumsum(counts, 0) - counts
     pos_in_e = torch.arange(T * k, device=dev) - seg_start[sl]
     keep = sm & (pos_in_e < C)

@@ -234,15 +234,24 @@ def test_ssd_shared_memory_at_served_width():
 def test_scan_wrappers_contract():
     """Launch counts stay untouched on the CPU; a tensor on another device
     never reaches a plain version; shapes and the chunk / head-block
-    contract are checked before either route."""
+    contract are checked before either route.  The scans are dispatcher
+    ops (``repro_torch::wkv_scan`` / ``ssd_scan``) since the dry run: a
+    meta tensor, which used to be refused, now gets the op's output shapes
+    (its shape function; no kernel, no plain version runs), and operands
+    on different devices are refused."""
     r, k, v, w, u = _t(_wkv_inputs(1, 32, 4, 16))
     W.wkv_scan(r, k, v, w, u)
     x, dt, Bm, Cm, A, D = _t(_ssd_inputs(1, 32, 8, 8, 8))
     S.ssd_scan(x, dt, Bm, Cm, A, D, chunk=16)
     assert W.launches == 0 and S.launches == 0
     meta = torch.ones(1, 32, 4, 16, device="meta")
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        W.wkv_scan(meta, meta, meta, meta, torch.ones(4, 16, device="meta"))
+    y, st = W.wkv_scan(meta, meta, meta, meta,
+                       torch.ones(4, 16, device="meta"))
+    assert y.is_meta and tuple(y.shape) == (1, 32, 4, 16)
+    assert st.is_meta and tuple(st.shape) == (1, 4, 16, 16)
+    assert W.launches == 0
+    with pytest.raises(ValueError, match="different devices"):
+        W.wkv_scan(meta, k, v, w, u)
     with pytest.raises(ValueError):
         W.wkv_scan(r, k, v, w, u[:2])                      # u not (H,K)
     with pytest.raises(ValueError):
@@ -251,3 +260,15 @@ def test_scan_wrappers_contract():
         S.ssd_scan(x, dt, Bm, Cm, A, D, chunk=24)          # 24 does not divide 32
     with pytest.raises(AssertionError):
         W.wkv_scan(r, k, v, w, u, chunk=16, hb=3)          # 3 does not divide 4
+    # the dispatcher ops check shapes themselves, on every route
+    wkv, ssd = torch.ops.repro_torch.wkv_scan, torch.ops.repro_torch.ssd_scan
+    for dev in ("cpu", "meta"):
+        r_, k_, v_, w_, u_ = (t.to(dev) for t in (r, k, v, w, u))
+        for bad in ((r_, k_[:, :16], v_, w_, u_), (r_, k_, v_[..., :8], w_, u_),
+                    (r_, k_, v_, w_[:, :, :2], u_), (r_, k_, v_, w_, u_[:2])):
+            with pytest.raises(ValueError):
+                wkv(*bad, 16, 8)
+        x_, dt_, B_, C_, A_, D_ = (t.to(dev) for t in (x, dt, Bm, Cm, A, D))
+        with pytest.raises(ValueError):
+            ssd(x_, dt_[:, :16], B_, C_, A_, D_, 16, 8)
+    assert W.launches == 0 and S.launches == 0
