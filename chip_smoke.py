@@ -31,8 +31,8 @@ card, and drives the port's paths:
     three backends, a fault plan (24 cells; EQUIVALENT, the same modeled
     rows at 4 workers and at 1, 2/4-device results bit-identical to 1
     device), the Fig. 5 batched lane against sequential ``coverify()``
-    calls, the matmul cells again with the data-movement profiler on
-    (attribution closing exactly, every Perfetto file valid), and a
+    calls, the matmul cells again at 512 with the data-movement profiler
+    on (attribution closing exactly, every Perfetto file valid), and a
     planted bug localized by replay bisection to its launch;
   * replay — the 4096 matmul recorded and replayed from checkpoints to
     its own digests and final state, the replay benchmark's 200-launch
@@ -100,8 +100,19 @@ card, and drives the port's paths:
     ``serve_moe``'s tokens and routing decisions (its decode steps timed,
     one profiled beside an engine without a context); then two spawned
     ranks sharing ``cuda:0`` over gloo (mesh data 1 x model 2): the
-    expert-parallel moonshot layer against the unsplit one, and the
-    vocab-parallel embedding bit for bit;
+    expert-parallel moonshot layer and the pjit layer with its experts
+    split (32 a rank) against the unsplit one, and the vocab-parallel
+    embedding bit for bit; then two more spawned ranks serving
+    llama3.2-1b at full width and depth through ``ServingEngine(ctx)``
+    (``serve_moe``'s options and eight requests, ``attn_impl="pallas"``)
+    on mesh (1, 2) (heads and cache positions split) and (2, 1) (rows
+    split), each decode step fed the unsharded engine's tokens (teacher
+    forcing): every logits row within ``LOGIT_TOL`` x max|logit| of the
+    unsharded row of the same step, its argmax the unsharded token unless
+    the unsharded top-2 logit gap is under ``TOKEN_GAP_TOL``, 16 x 8
+    attention launches a rank on its local heads, every cache leaf at its
+    ``cache_specs`` local shape after every tick, half the cache's bytes
+    a rank;
   * dryrun — the dry run (``launch/dryrun.py``, ``core/hlo_profiler.py``)
     against the card: llama3.2-1b's train step at train_llama's batch with
     the dry run's flags (``chunked``, one microbatch, remat) counted by
@@ -402,7 +413,9 @@ SPLIT_RULE = 0.5
 # attention (D=128, causal), the vlm's cross attention over its 1600
 # patches (non-causal, Sq != Skv; blocks (512, 400): the models clamp
 # each block to a divisor of its length) and hubert-xlarge's encoder
-# (D=80, non-causal, two sequences).
+# (D=80, non-causal, two sequences); then llama3.2-1b's local heads on one
+# rank of a model axis of two (16 of 32 query heads, 4 of 8 k / v heads:
+# the sharded phase's two-rank serving).
 FA_SHAPES = [
     (2, 4, 2, 128, 16, True, 0, torch.float32, 32),
     (1, 4, 4, 64, 32, False, 0, torch.float32, 32),
@@ -424,6 +437,7 @@ FA_SHAPES = [
     (1, 32, 8, 1536, 128, True, 0, torch.bfloat16, 512),
     (1, 32, 8, 1536, 128, False, 0, torch.bfloat16, (512, 400), 1600),
     (2, 16, 16, 1536, 80, False, 0, torch.bfloat16, 512),
+    (1, 16, 4, 1536, 64, True, 0, torch.bfloat16, 512),
 ]
 FA_MAIN = 8
 FA_TRAIN = 9
@@ -434,6 +448,7 @@ FA_MOE = 16          # moonshot-v1-16b-a3b's attention (serve_moe)
 FA_VLM = 17          # llama-3.2-vision-11b's self attention (serve_vlm)
 FA_CROSS = 18        # its cross attention over the patches (serve_vlm)
 FA_AUDIO = 19        # hubert-xlarge's encoder (encode_audio)
+FA_LOCAL = 20        # llama3.2-1b's heads on one of two model ranks (sharded)
 
 # Backward: the reference's gradient rows (SWEEP[:3] of
 # tests/test_kernels_flash.py), a GQA row with G=4 (a missing head sum shows
@@ -1395,9 +1410,10 @@ TRACE_DIR = ROOT / "build" / "sweep_traces"
 # this size: the export holds a counter sample every 256 modeled cycles
 # (most of a ring cell's events) and a slice a burst, so a ring cell's
 # file grows with the modeled horizon, 4x a doubling of the size from 512
-# to 1024 (66 -> 270 MB), and at 4096 would be GBs; 1024 is the largest
-# size whose 12 files are written and read back in under two minutes
-TRACE_CELLS = {"mm": dict(size=1024, tile=128)}
+# to 1024 (66 -> 270 MB), and at 4096 would be GBs.  512: at 1024 the 12
+# files took 117 s to write and read back on a slow machine (three 270 MB
+# ring files), time the sharded phase's two-rank serving needs
+TRACE_CELLS = {"mm": dict(size=512, tile=128)}
 
 
 def sweep_firmware(fb, op, backend, **cfg):
@@ -3491,7 +3507,17 @@ def _two_rank_worker(rank: int, store: str, result: str) -> None:
                 want, want_aux = moe_lib.moe_apply(w, x, cfg)
             with RouterLog() as ep_log:
                 got, aux = moe_apply_ep(w, x, cfg, ctx)
+            # the pjit layer with this rank's experts (the reference's
+            # rule puts them on the model axis)
+            El = cfg.moe.n_experts // ctx.msize
+            e0 = ctx.model_rank * El
+            wl = {k: v if k == "router" else v[e0:e0 + El].contiguous()
+                  for k, v in w.items()}
+            with RouterLog() as pjit_log:
+                got_p, aux_p = tf._moe_tokens(
+                    cfg, RunFlags(moe_mode="pjit"), ctx, wl, x)
             torch.cuda.synchronize()
+            err_p = float((got_p.float() - want.float()).abs().max())
             err = float((got.float() - want.float()).abs().max())
             ref = max(1.0, float(want.float().abs().max()))
             row.update(max_abs_err=err, err_over_tol=err / (
@@ -3499,6 +3525,10 @@ def _two_rank_worker(rank: int, store: str, result: str) -> None:
                 exact_share=float((got == want).float().mean()),
                 aux=float(aux), plain_aux=float(want_aux),
                 routes=route_flips(plain_log, ep_log),
+                pjit={"max_abs_err": err_p,
+                      "err_over_tol": err_p / (SHARDED_MOE_TOL * ref),
+                      "aux": float(aux_p),
+                      "routes": route_flips(plain_log, pjit_log)},
                 local_experts=cfg.moe.n_experts // ctx.msize,
                 host_staged=dict(comm.HOST_STAGED),
                 out_dtype=str(got.dtype), device=str(got.device))
@@ -3538,8 +3568,290 @@ def sharded_two_ranks() -> dict:
                 row["routes"]["flipped_tokens"] or \
                 not row["routes"]["same_calls"] or \
                 row["aux"] != row["plain_aux"] or \
+                row["pjit"]["err_over_tol"] >= 1.0 or \
+                row["pjit"]["routes"]["flipped_tokens"] or \
+                not row["pjit"]["routes"]["same_calls"] or \
+                row["pjit"]["aux"] != row["plain_aux"] or \
                 not row["device"].startswith("cuda"):
             fail(f"sharded two ranks: {out}")
+    return out
+
+
+# the two-rank serving, fed the unsharded engine's tokens at every decode
+# step (teacher forcing): each logits row within LOGIT_TOL x max|logit| of
+# the unsharded row of the same step (bf16: the split sums round
+# differently; 16 steps of bf16's 2^-8), its argmax the unsharded token
+# unless the unsharded top-2 gap is under TOKEN_GAP_TOL of max|logit|
+LOGIT_TOL = 2.0 ** -4
+TOKEN_GAP_TOL = 2.0 ** -5
+TWO_RANK_MESHES = ((1, 2), (2, 1))
+
+
+def _local_shapes_ok(eng) -> bool:
+    """Whether every cache leaf of a sharded engine holds its
+    ``cache_specs`` local shape (``Sharding.local_index``)."""
+    from repro_torch.sharding.specs import map_specs
+    ok = []
+    map_specs(lambda sh, t, w: ok.append(tuple(t.to_local().shape) == tuple(
+        s.stop - s.start for s in sh.local_index(tuple(w.shape),
+                                                 sh.mesh.coordinate()))),
+              eng._cache_sh, eng.cache, eng._cache_shape)
+    return all(ok)
+
+
+def _serve_logged(eng, reqs, forced=None) -> dict:
+    """Serves ``reqs`` through the CSR doorbell -> {rid: the logits row
+    (on the host) of each token it emitted on this rank's rows}.  With
+    ``forced`` = (tokens, logits rows) of another engine's run, each
+    decode step is fed that run's tokens (teacher forcing), and each row
+    is compared with that run's row of the same step instead: {rid:
+    [|row - ref| max / max|ref|, whether the argmax is its token, ref's
+    top-2 gap / max|ref|]}.  A sharded engine's cache leaves are held to
+    their local shapes after every tick (``out["local_shapes_ok"]``)."""
+    out = {rid: [] for rid, _, _ in reqs}
+    shapes_ok = [True]
+    prefill, decode = eng._prefill, eng._decode
+    seen = {}
+
+    def keep(rid, row):
+        if forced is None:
+            out[rid].append(row.cpu())
+            return
+        j = len(out[rid])
+        ref = forced[1][rid][j].to(row.device).float()
+        top = ref.topk(2).values
+        mx = float(ref.abs().max())
+        out[rid].append([float((row.float() - ref).abs().max()) / mx,
+                         int(row.argmax()) == forced[0][rid][j],
+                         float(top[0] - top[1]) / mx])
+
+    def logged_prefill(p, batch):
+        logits, single = prefill(p, batch)
+        seen["prefill"] = logits
+        return logits, single
+
+    def logged_decode(p, cache, toks):
+        if forced is not None:
+            toks = torch.tensor(
+                [forced[0][r.rid][len(r.out_tokens) - 1] % eng.cfg.vocab_size
+                 if r is not None else 0 for r in eng.slots],
+                dtype=toks.dtype, device=toks.device)
+        logits, cache = decode(p, cache, toks)
+        seen["decode"] = logits
+        return logits, cache
+    admit, step = eng._prefill_admit, eng._decode_step
+
+    def check():
+        if eng.ctx is not None:
+            shapes_ok[0] = shapes_ok[0] and _local_shapes_ok(eng)
+
+    def logged_admit(slot, req):
+        admit(slot, req)
+        keep(req.rid, seen["prefill"][0])
+        check()
+
+    def logged_step():
+        rows = {i: r.rid for i, r in enumerate(eng.slots) if r is not None}
+        step()
+        lg = seen["decode"]
+        lo = 0 if lg.shape[0] == eng.max_slots else \
+            eng.ctx.data_rank * lg.shape[0]
+        for i, rid in rows.items():
+            if lo <= i < lo + lg.shape[0]:
+                keep(rid, lg[i - lo])
+        check()
+    eng._prefill, eng._decode = logged_prefill, logged_decode
+    eng._prefill_admit, eng._decode_step = logged_admit, logged_step
+    drive_doorbell(eng, reqs)
+    out["local_shapes_ok"] = shapes_ok[0]
+    return out
+
+
+def _cache_bytes(cache) -> dict:
+    """Bytes of the leaves the layout splits, whole and on this rank, and
+    of the replicated ``pos``."""
+    out = {"split_whole": 0, "split_local": 0, "replicated": 0}
+    for name, t in cache.items():
+        for d in (t if isinstance(t, tuple) else (t,)):
+            loc = d.to_local()
+            nb = loc.numel() * loc.element_size()
+            if tuple(loc.shape) == tuple(d.shape):
+                out["replicated"] += nb
+            else:
+                out["split_local"] += nb
+                out["split_whole"] += d.numel() * loc.element_size()
+    return out
+
+
+def _two_rank_serve_worker(rank: int, store: str, result: str,
+                           unsharded: str) -> None:
+    """One of two ranks on cuda:0 (spawned): llama3.2-1b served through
+    ``ServingEngine(ctx)`` on each mesh of ``TWO_RANK_MESHES``, fed the
+    tokens of the unsharded run saved in ``unsharded``."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_ctx, make_test_mesh
+    from repro_torch.sharding import comm
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2)
+    try:
+        cfg = get_config(LLAMA["arch"])
+        want = torch.load(unsharded)
+        forced = (want["tokens"], want["logits"])
+        params = tf.init_params(cfg, torch.Generator(device="cuda")
+                                .manual_seed(0), dtype=torch.bfloat16)
+        opts = {k: SERVE[k] for k in ("max_slots", "max_len", "prompt_pad",
+                                      "batching")}
+        rows = []
+        for shape in TWO_RANK_MESHES:
+            # the DeviceMesh is CUDA's (DTensor.from_local moves a local
+            # tensor to its mesh's device type) over gloo groups; no DTensor
+            # collective runs: the steps communicate through
+            # sharding/comm.py, which stages CUDA tensors through the host
+            ctx = make_ctx(make_test_mesh(shape).bind("cuda"))
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            eng = ServingEngine(cfg, params, flags=RunFlags(
+                attn_impl="pallas"), ctx=ctx, device="cuda", **opts)
+            staged = dict(comm.HOST_STAGED)
+            FAK.launches = 0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            rows_ = _serve_logged(eng, serve_requests(cfg), forced)
+            torch.cuda.synchronize()
+            rows.append({
+                "mesh": list(shape), "rank": rank,
+                "serve_s": time.perf_counter() - t,
+                "local_shapes_ok": rows_.pop("local_shapes_ok"),
+                "flash_fwd": FAK.launches,
+                "tokens": {r.rid: list(r.out_tokens)
+                           for r in eng.requests.values()},
+                "checks": rows_, "cache_bytes": _cache_bytes(eng.cache),
+                "leaf_types": sorted({type(x).__name__
+                                      for x in leaves(eng.cache)}),
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "host_staged_calls": comm.HOST_STAGED["calls"]
+                - staged["calls"],
+                "host_staged_bytes": comm.HOST_STAGED["bytes"]
+                - staged["bytes"]})
+            del eng
+        Path(result).write_text(json.dumps(rows))
+    finally:
+        dist.destroy_process_group()
+
+
+def forced_summary(checks: dict) -> dict:
+    """A teacher-forced run's rows (``_serve_logged``): their count, the
+    largest and the median |row - ref| / max|ref|, the steps whose argmax
+    is not the unsharded token (with its gap), and the unsharded top-2
+    gap / max|logit| at its 1st, 5th and 50th percentiles over the
+    rows."""
+    rows = [(rid, j, *c) for rid, cs in checks.items()
+            for j, c in enumerate(cs)]
+    errs = np.array([r[2] for r in rows])
+    gaps = np.array([r[4] for r in rows])
+    return {"rows": len(rows), "err_over_max": float(errs.max()),
+            "err_over_max_median": float(np.median(errs)),
+            "argmax_differs": [{"rid": r[0], "step": r[1], "err": r[2],
+                                "gap_over_max": r[4]}
+                               for r in rows if not r[3]],
+            "gap_over_max_p1_p5_p50": [float(np.percentile(gaps, q))
+                                       for q in (1, 5, 50)]}
+
+
+def sharded_serve_two_ranks(card: str) -> dict:
+    """llama3.2-1b served without a context here, then by two spawned
+    ranks on cuda:0 through ``ServingEngine(ctx)`` on (1, 2) and (2, 1)."""
+    import torch.multiprocessing as mp
+    cfg = get_config(LLAMA["arch"])
+    reqs = serve_requests(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = tf.init_params(cfg, torch.Generator(device="cuda")
+                            .manual_seed(0), dtype=torch.bfloat16)
+    opts = {k: SERVE[k] for k in ("max_slots", "max_len", "prompt_pad",
+                                  "batching")}
+    eng = ServingEngine(cfg, params, flags=RunFlags(attn_impl="pallas"),
+                        device="cuda", **opts)
+    FAK.launches = 0
+    t = time.perf_counter()
+    logits = _serve_logged(eng, reqs)
+    logits.pop("local_shapes_ok")
+    torch.cuda.synchronize()
+    whole = {"serve_s": time.perf_counter() - t, "flash_fwd": FAK.launches,
+             "max_memory_allocated": torch.cuda.max_memory_allocated()
+             - base, "cache_bytes": sum(
+                 x.numel() * x.element_size() for x in leaves(eng.cache))}
+    want = {r.rid: list(r.out_tokens) for r in eng.requests.values()}
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = Path(tempfile.mkdtemp(prefix="two_rank_serve_",
+                                 dir=_build.BUILD_DIR))
+    torch.save({"tokens": want, "logits": {
+        rid: torch.stack(rows) for rid, rows in logits.items()}},
+        work / "unsharded.pt")
+    del logits
+    t = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_two_rank_serve_worker,
+                         args=(r, str(work / "store"),
+                               str(work / f"rank{r}.json"),
+                               str(work / "unsharded.pt")))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=900)
+        if p.is_alive():
+            p.kill()
+            p.join()
+    ranks = []
+    for r, p in enumerate(procs):
+        f = work / f"rank{r}.json"
+        if p.exitcode != 0 or not f.exists():
+            fail(f"sharded two-rank serving: rank {r} exit code "
+                 f"{p.exitcode}")
+        ranks.append(json.loads(f.read_text()))
+    shutil.rmtree(work, ignore_errors=True)
+    want_launches = cfg.n_layers * len(reqs)
+    runs, bad = [], []
+    for i, shape in enumerate(TWO_RANK_MESHES):
+        rows = [rk[i] for rk in ranks]
+        for row in rows:
+            row["tokens"] = {int(k): v for k, v in row["tokens"].items()}
+            row["forced"] = forced_summary(row.pop("checks"))
+        run = {"mesh": list(shape),
+               "ranks_agree": rows[0]["tokens"] == rows[1]["tokens"],
+               "ranks": [{k: v for k, v in row.items() if k != "tokens"}
+                         for row in rows]}
+        runs.append(run)
+        if not run["ranks_agree"] or any(
+                r["forced"]["err_over_max"] > LOGIT_TOL or any(
+                    d["gap_over_max"] >= TOKEN_GAP_TOL
+                    for d in r["forced"]["argmax_differs"])
+                for r in rows):
+            bad.append(f"{shape}: logits or tokens")
+        for row in rows:
+            cb = row["cache_bytes"]
+            if row["flash_fwd"] != want_launches or \
+                    not row["local_shapes_ok"] or \
+                    2 * cb["split_local"] != cb["split_whole"] or \
+                    cb["split_whole"] + cb["replicated"] != \
+                    whole["cache_bytes"] or row["leaf_types"] != ["DTensor"]:
+                bad.append(f"{shape}: rank {row['rank']}")
+    out = {"note": "two ranks share one card (cuda:0) over gloo: this "
+                   "checks the sharded serving path, not scaling",
+           "arch": LLAMA["arch"], "requests": len(reqs),
+           "teacher_forced": True, "logit_tol": LOGIT_TOL,
+           "token_gap_tol": TOKEN_GAP_TOL, "unsharded": whole,
+           "flash_fwd_per_rank_want": want_launches, "runs": runs,
+           "wall_s": time.perf_counter() - t}
+    if bad:
+        fail(f"sharded two-rank serving {bad}: {out}")
     return out
 
 
@@ -3560,11 +3872,16 @@ def phase_sharded(card: str) -> dict:
           f"their collectives staged "
           f"{two['ranks'][0]['host_staged']['calls']} calls through host "
           f"memory", file=sys.stderr)
+    two_serve = sharded_serve_two_ranks(card)
     row = {"phase": "sharded", "card": card, "train": train, "serve": serve,
-           "two_ranks": two, "seconds": time.perf_counter() - t}
+           "two_ranks": two, "two_rank_serve": two_serve,
+           "seconds": time.perf_counter() - t}
     emit(row)
     return {**train["runs"]["sharded"]["launches"],
-            "serve_flash_fwd": serve["launches"]["flash_fwd"]}
+            "serve_flash_fwd": serve["launches"]["flash_fwd"],
+            "two_rank_serve_flash_fwd": sum(
+                r["flash_fwd"] for run in two_serve["runs"]
+                for r in run["ranks"])}
 
 
 # ----------------------------------------------------------------- dryrun
@@ -3884,13 +4201,15 @@ def main() -> int:
                       "serve_vlm": vlm["flash_fwd"],
                       "serve_moe": moe["flash_fwd"],
                       "sharded": sharded["flash_fwd"]
-                      + sharded["serve_flash_fwd"]},
+                      + sharded["serve_flash_fwd"]
+                      + sharded["two_rank_serve_flash_fwd"]},
                      {"fabric": fa_rows[FA_SHARD],
                       "sweep": [fa_rows[i] for i in
                                 (FA_MAIN, FA_SHARD2, FA_SHARD)],
                       "serve_moe": fa_rows[FA_MOE],
                       "serve_vlm": [fa_rows[FA_VLM], fa_rows[FA_CROSS]],
-                      "encode_audio": fa_rows[FA_AUDIO]}),
+                      "encode_audio": fa_rows[FA_AUDIO],
+                      "sharded": fa_rows[FA_LOCAL]}),
         kernel_entry("flash_dkdv", [src + "flash_bwd.cu",
                                     src + "flash_dkdv_sm90.cuh",
                                     src + "sm90.cuh"],

@@ -561,10 +561,13 @@ class ProgramCounter(TorchDispatchMode):
     keeps one ``(op, shapes, flops, traffic)`` entry a counted op, to find
     where two runs part; ``reuse_shapes=False`` runs every op's shape
     function on meta tensors (see ``_run``), the reference the tests hold
-    the reuse to."""
+    the reuse to.  ``peak_sites`` attributes the live bytes to where each
+    storage was made (``"forward|backward file:function"`` of the port's
+    innermost frame, ``"arguments"`` for ``track()``): ``peak_by_site``
+    holds that split at the peak, to within 1 MiB."""
 
     def __init__(self, world_size: int = 1, *, log_ops: bool = False,
-                 reuse_shapes: bool = True):
+                 reuse_shapes: bool = True, peak_sites: bool = False):
         super().__init__()
         self._shapes: Optional[dict] = {} if reuse_shapes else None
         self._reuse: Dict[Any, str] = {}
@@ -582,6 +585,10 @@ class ProgramCounter(TorchDispatchMode):
         self.ops: Optional[List[tuple]] = [] if log_ops else None
         self.live_bytes = self.peak_bytes = 0
         self._live: Dict[int, tuple] = {}
+        self._site_bytes: Optional[Dict[str, int]] = \
+            defaultdict(int) if peak_sites else None
+        self.peak_by_site: Dict[str, int] = {}
+        self._site_peak = 0
 
     # ------------------------------------------------------------ memory
     def track(self, *trees) -> int:
@@ -589,24 +596,36 @@ class ProgramCounter(TorchDispatchMode):
         tensors) as live; returns their bytes."""
         before = self.live_bytes
         for t in _leaf_tensors(trees):
-            self._hold(t)
+            self._hold(t, "arguments")
         return self.live_bytes - before
 
-    def _hold(self, t: torch.Tensor) -> None:
+    def _hold(self, t: torch.Tensor, site: Optional[str] = None) -> None:
         st = t.untyped_storage()
         key = id(st)
         if key in self._live:
             return
         n = _round_block(st.nbytes())
+        if self._site_bytes is not None and site is None:
+            comp = "backward" if torch._C._current_graph_task_id() >= 0 \
+                else "forward"
+            site = f"{comp} {self._caller()}"
         self._live[key] = (weakref.ref(st, functools.partial(
-            self._release, key)), n)
+            self._release, key)), n, site)
         self.live_bytes += n
+        if self._site_bytes is not None:
+            self._site_bytes[site] += n
+            if self.live_bytes > self._site_peak + (1 << 20):
+                self._site_peak = self.live_bytes
+                self.peak_by_site = {k: v for k, v in
+                                     self._site_bytes.items() if v}
         self.peak_bytes = max(self.peak_bytes, self.live_bytes)
 
     def _release(self, key: int, _ref) -> None:
         entry = self._live.pop(key, None)
         if entry is not None:
             self.live_bytes -= entry[1]
+            if self._site_bytes is not None:
+                self._site_bytes[entry[2]] -= entry[1]
 
     # ------------------------------------------------------------ counting
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):

@@ -1,5 +1,6 @@
-"""The backward of the scan kernels' wrappers (``rwkv6_wkv/ops.py``,
-``mamba2_scan/ops.py``): no backward kernel, but the forward run again
+"""The backward of the SSD scan kernel's wrapper (``mamba2_scan/ops.py``;
+the WKV-6 one walks its chunks, ``rwkv6_wkv/ops.py``): no backward
+kernel, but the forward run again
 through the reference's own training arithmetic — the lax scans that
 ``jax.value_and_grad`` differentiates there, here the port's twins of
 them — on detached inputs under autograd, then ``torch.autograd.grad``

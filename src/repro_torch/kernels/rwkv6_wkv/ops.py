@@ -8,7 +8,6 @@ from typing import List, Tuple
 
 import torch
 
-from repro_torch.kernels._recompute import recompute_grads
 from repro_torch.kernels.rwkv6_wkv import kernel as K
 
 
@@ -31,13 +30,75 @@ def wkv_scan_twin(r, k, v, w, u, *, chunk=16):
     return torch.cat(ys, dim=1), state
 
 
+def _boundary_states(k, v, w, cl: int):
+    """The twin's state entering each chunk of ``cl`` steps (the first a
+    zero state), by its own state update, without outputs or autograd."""
+    B, L, H, Kd = k.shape
+    state = torch.zeros((B, H, Kd, v.shape[-1]), dtype=torch.float32,
+                        device=k.device)
+    out = [state]
+    for t in range(L - cl):
+        kt, vt, wt = k[:, t], v[:, t], w[:, t]
+        state = wt[..., None] * state + kt[..., None] * vt[:, :, None, :]
+        if (t + 1) % cl == 0:
+            out.append(state)
+    return out
+
+
+def chunked_recompute_grads(ctx, gy: torch.Tensor, gstate: torch.Tensor):
+    """The gradients ``recompute_grads`` gives through ``wkv_scan_twin``,
+    holding the twin's state at the chunk boundaries only: one pass
+    without autograd for those states, then the chunks in reverse, each
+    recomputed under autograd from its entering state (``_wkv_chunk``,
+    the twin's arithmetic) and differentiated with its share of ``gy``
+    and the gradient of the state it hands on.  The whole-sequence
+    recompute keeps every step's (B, H, K, V) state until its backward
+    ends; this keeps L / chunk of them and one chunk's graph."""
+    from repro_torch.models.rwkv6 import _wkv_chunk    # models import ops
+    need = list(ctx.needs_input_grad[:5])
+    if not any(need):
+        return [None] * 5
+    r, k, v, w, u = (t.detach() for t in ctx.saved_tensors)
+    L = r.shape[1]
+    cl = min(ctx.twin_kw["chunk"], L)
+    with torch.no_grad():
+        states = _boundary_states(k, v, w, cl)
+    grads = [torch.zeros_like(t) if n else None
+             for t, n in zip((r, k, v, w), need)]
+    gu = torch.zeros_like(u) if need[4] else None
+    gs = gstate
+    for c in reversed(range(L // cl)):
+        rows = slice(c * cl, (c + 1) * cl)
+        ins = [t[:, rows].requires_grad_(n)
+               for t, n in zip((r, k, v, w), need)]
+        uu = u.requires_grad_(need[4])
+        s0 = states[c].requires_grad_(c > 0)
+        wrt = [t for t in ins + [uu, s0] if t.requires_grad]
+        with torch.enable_grad():
+            state, yc = _wkv_chunk(s0, *ins, uu)
+            got = iter(torch.autograd.grad(
+                (yc, state), wrt, (gy[:, rows], gs), allow_unused=True))
+        for i, n in enumerate(need[:4]):
+            if n:
+                g = next(got)
+                if g is not None:
+                    grads[i][:, rows] = g
+        if need[4]:
+            g = next(got)
+            if g is not None:
+                gu = gu + g
+        if c > 0:
+            gs = next(got)
+        states[c] = None
+    return grads + [gu]
+
+
 class _WKV(torch.autograd.Function):
     """Forward: the kernel (CUDA tensors) or its plain version (CPU
-    tensors).  Backward, on both devices: the forward again through
-    ``wkv_scan_twin`` on detached inputs under autograd, then
-    ``torch.autograd.grad`` with the incoming gradients
-    (``kernels/_recompute.py``) — the reference differentiates exactly that
-    scan."""
+    tensors).  Backward, on both devices: the forward again through the
+    twin's arithmetic on detached inputs under autograd, chunk by chunk
+    from the chunk-boundary states (``chunked_recompute_grads``) — the
+    reference differentiates exactly that scan."""
 
     @staticmethod
     def forward(ctx, r, k, v, w, u, chunk, hb):
@@ -47,8 +108,7 @@ class _WKV(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, gstate):
-        return (*recompute_grads(ctx, wkv_scan_twin, gy, gstate), None,
-                None)
+        return (*chunked_recompute_grads(ctx, gy, gstate), None, None)
 
 
 def wkv_scan(r, k, v, w, u, *, chunk=16, hb=8):

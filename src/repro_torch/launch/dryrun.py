@@ -22,11 +22,13 @@ it is counted the same way (``core/hlo_profiler.py``):
 
 The step is the port's, as its users call it: the train step of
 ``make_train_step`` (the batch whole on every rank, as the ``Trainer``
-feeds it), the prefill of ``make_prefill_fn`` (the prompts whole) and the
-decode of ``make_decode_fn`` with the cache gathered whole and the new one
-placed back in its layout (as ``ServingEngine(ctx=...)`` holds it).  Inputs
-that the port takes whole are handed in the reference's layouts and
-gathered inside the step, so every cell's arguments are rank 0's shards.
+feeds it), the prefill of ``make_prefill_fn`` (the prompts whole; it
+computes rank 0's rows and returns its shard of the cache) and the decode
+of ``make_decode_fn`` on rank 0's shard of the cache, the new one kept as
+the local shards of the same layout (as ``ServingEngine(ctx=...)`` holds
+it).  Inputs that the port takes whole are handed in the reference's
+layouts and gathered inside the step, so every cell's arguments are rank
+0's shards.
 
 Meta tensors rather than ``FakeTensorMode``: a fake tensor is a meta tensor
 behind a Python wrapper that costs 0.1-0.6 ms an op on a CPU host, and a
@@ -62,7 +64,8 @@ from repro_torch.launch import steps as steps_lib
 from repro_torch.launch.mesh import make_ctx, make_production_mesh
 from repro_torch.models.transformer import (RunFlags, make_decode_fn,
                                             make_prefill_fn)
-from repro_torch.sharding.specs import place, whole_tree
+from repro_torch.sharding.specs import from_local_tree, local_tree, \
+    whole_tree
 
 ART_DIR = Path(__file__).resolve().parents[3] / "benchmarks" / "artifacts" \
     / "torch" / "dryrun"
@@ -179,11 +182,11 @@ def build_lowered(cfg, shape, mesh, ctx, flags: RunFlags,
     # decode
     p_shape, p_sh, c_shape, c_sh, t_shape, t_sh = steps_lib.decode_shardings(
         cfg, shape, mesh, ctx)
-    step = make_decode_fn(cfg, flags, ctx)
+    step = make_decode_fn(cfg, flags, ctx, max_len=shape.seq_len)
 
     def decode(params, cache, tokens):
-        logits, new = step(params, whole_tree(cache), whole_tree(tokens))
-        return logits, place(new, c_sh)
+        logits, new = step(params, local_tree(cache), whole_tree(tokens))
+        return logits, from_local_tree(new, c_sh, c_shape)
     return Lowered(decode, (_materialise(p_shape, p_sh),
                             _materialise(c_shape, c_sh),
                             _materialise(t_shape, t_sh)), 1), 0, flags
@@ -216,11 +219,13 @@ def mem_fields(counter: hlo_profiler.ProgramCounter, lowered: Lowered,
 
 def measure_cell(cfg, shape, mesh, flags: RunFlags,
                  save_ops: Optional[Path] = None, *,
-                 reuse_shapes: bool = True) -> dict:
+                 reuse_shapes: bool = True, peak_sites: bool = False) -> dict:
     """The record of one cell on ``mesh`` (unbound; its size is the fake
     group's), without the arch / tag fields, written nowhere.
     ``reuse_shapes=False`` runs every op's shape function (the reference
-    the tests hold the reuse to; see ``ProgramCounter``)."""
+    the tests hold the reuse to; see ``ProgramCounter``); ``peak_sites``
+    adds ``memory_analysis["peak_by_site"]``, the live bytes at the peak
+    by where they were made."""
     world = mesh.size
     with fake_process_group(world):
         bound = mesh.bind("cpu")
@@ -229,13 +234,17 @@ def measure_cell(cfg, shape, mesh, flags: RunFlags,
                                                    make_ctx(bound), flags)
         t_lower = time.time() - t0
         counter = hlo_profiler.ProgramCounter(
-            world, log_ops=save_ops is not None, reuse_shapes=reuse_shapes)
+            world, log_ops=save_ops is not None, reuse_shapes=reuse_shapes,
+            peak_sites=peak_sites)
         held = counter.track(lowered.args)
         t0 = time.time()
         with counter:
             out = lowered.fn(*lowered.args)
         t_compile = time.time() - t0
         mem = mem_fields(counter, lowered, out, held)
+        if peak_sites:
+            mem["peak_by_site"] = dict(sorted(
+                counter.peak_by_site.items(), key=lambda kv: -kv[1]))
         del out, lowered
     prof = counter.profile()
     mf = model_flops(cfg, shape, shape.kind) / world
@@ -277,7 +286,7 @@ def measure_cell(cfg, shape, mesh, flags: RunFlags,
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
              flags: RunFlags, tag: str = "baseline",
-             save_text: bool = False) -> dict:
+             save_text: bool = False, peak_sites: bool = False) -> dict:
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     mesh = make_production_mesh(multi_pod=multi_pod)
@@ -286,7 +295,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     ART_DIR.mkdir(parents=True, exist_ok=True)
     m = measure_cell(cfg, shape, mesh, flags,
                      save_ops=ART_DIR / f"{stem}.ops.txt" if save_text
-                     else None)
+                     else None, peak_sites=peak_sites)
     rec = {"arch": arch, "shape": shape_name, "kind": m.pop("kind"),
            "mesh": m.pop("mesh"), "world": m.pop("world"), "tag": tag, **m}
     (ART_DIR / f"{stem}.json").write_text(json.dumps(rec, indent=1))
@@ -333,6 +342,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--save-hlo", action="store_true",
                     help="also write the op stream (<cell>.ops.txt: one "
                     "line an op, with its shapes, FLOPs and bytes)")
+    ap.add_argument("--peak-sites", action="store_true",
+                    help="split the live bytes at the peak by where they "
+                    "were made (memory_analysis.peak_by_site)")
     ap.add_argument("--q-chunk", type=int, default=512)
     ap.add_argument("--kv-chunk", type=int, default=512)
     ap.add_argument("--skip-tiles", action="store_true")
@@ -363,7 +375,8 @@ def main(argv=None) -> int:
             name = f"{a:24s} {s:12s} {'2x16x16' if mp else '16x16'}"
             try:
                 rec = run_cell(a, s, mp, flags, tag=args.tag,
-                               save_text=args.save_hlo)
+                               save_text=args.save_hlo,
+                               peak_sites=args.peak_sites)
                 rl = rec["roofline"]
                 print(f"OK    {name} compile={rec['compile_s']:7.1f}s "
                       f"dom={rl['dominant']:10s} "

@@ -11,7 +11,9 @@
                    ``kernels/flash_attention/ops.py`` (their plain versions
                    on CPU tensors).
 
-``decode_attention`` is the one-query masked einsum of the decode step.
+``decode_attention`` is the one-query masked einsum of the decode step;
+``decode_attention_partial`` / ``combine_partials`` split it over slices
+of the cache's positions (context-parallel decode).
 
 GQA is handled by grouping query heads over KV heads (no KV materialised
 repeat).  Masking is position-based: callers pass q/kv position arrays;
@@ -192,6 +194,43 @@ def decode_attention(q, k, v, *, q_pos, kv_pos, window: int = 0):
     p = torch.where(mask, p, torch.zeros_like(p))
     o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).float(), v.float())
     return o.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def decode_attention_partial(q, k, v, *, q_pos, kv_pos, window: int = 0):
+    """``decode_attention`` over one slice of the cache's positions, for
+    context-parallel decode: -> (acc (B,1,H,D) f32, m (B,1,H,1) f32,
+    l (B,1,H,1) f32): the slice's running max of the scores, the sum of
+    their exponentials relative to it, and the unnormalised output.  A
+    slice with no valid position gives m = -1e30, l = 0, acc = 0.
+    ``combine_partials`` turns the slices' triples into the output."""
+    B, Sq, H, D = q.shape
+    KH = k.shape[2]
+    G = H // KH
+    qg = q.reshape(B, Sq, KH, G, D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) / np.sqrt(D)
+    spec = AttnSpec(causal=True, window=window)
+    mask = _tile_mask(spec, q_pos, kv_pos)[:, None, None]
+    s = torch.where(mask, s, torch.full_like(s, _NEG))
+    m = s.amax(dim=-1, keepdim=True)                        # (B,KH,G,q,1)
+    p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).float(), v.float())
+    side = lambda t: t.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, 1)
+    return acc.reshape(B, Sq, H, D), side(m), side(l)
+
+
+def combine_partials(acc, m, l, *, max_fn, sum_fn):
+    """The exact softmax output from the slices' ``decode_attention_
+    partial`` triples: ``max_fn(m)`` is the max over the slices,
+    ``sum_fn(a, b)`` the sums of ``a`` and of ``b`` over them (over a
+    leading dim of stacked triples, or a collective over the ranks that
+    hold the slices).  f32; a row with no valid position anywhere is 0."""
+    mg = max_fn(m)
+    scale = torch.exp(m - mg)
+    num, den = sum_fn(acc * scale, l * scale)
+    return torch.where(den > 0, num / torch.where(den > 0, den,
+                                                  torch.ones_like(den)),
+                       torch.zeros_like(num))
 
 
 def _divisor_chunk(want: int, length: int) -> int:

@@ -12,8 +12,8 @@ Where PyTorch differs from JAX the port pins the reference's semantics:
     ``torch.topk`` promises no order for ties, so the top k are taken from
     a stable descending sort.
   * The reference scatters dropped rows to index ``E * C`` with
-    ``mode="drop"``; here the buffer has one spare row that takes them and
-    is cut off.
+    ``mode="drop"``; here the index of the token each slot holds has one
+    spare entry that takes them and is cut off.
   * The combine ``out.at[st].add(yt)`` becomes a gather of each token's k
     contributions in the sorted (ascending-expert) order, added one after
     the other in ``y``'s type: no atomic scatter-add, so the result does
@@ -83,37 +83,50 @@ def route(router_w: torch.Tensor, x: torch.Tensor, k: int
     return idx, w, aux
 
 
-def moe_apply(w: dict, x: torch.Tensor, cfg: ModelConfig
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (T, d) -> (out (T, d), aux loss).  Sort-based capacity dispatch."""
+def moe_apply(w: dict, x: torch.Tensor, cfg: ModelConfig, e0: int = 0,
+              region=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (T, d) -> (out (T, d), aux loss).  Sort-based capacity dispatch
+    over all T tokens with the whole router ``w["router"]``; the experts
+    that run are ``e0 .. e0 + El``, ``El`` those of ``w``'s expert
+    weights (all of them by default).  With a share of the experts, out
+    is that share of the layer's output: the shares of all experts sum to
+    it.  The dispatch fills the running experts' (El·C, d) rows from an
+    index of the token each slot holds, and the combine adds, for each of
+    a token's k slots in ascending expert order, its expert's row or zero:
+    no (T·k, d) buffer.  ``region`` (identity by default) is applied to
+    the tokens the experts read and to the combine weights, not to the
+    routing's tokens: it lets a caller sum those two gradients over the
+    ranks that run the other experts."""
     m = cfg.moe
     T, d = x.shape
     C = capacity(cfg, T)
     E, k = m.n_experts, m.top_k
+    up = w["w_gate"] if cfg.mlp_type == "swiglu" else w["w_in"]
+    El = up.shape[0]
     dev = x.device
 
     idx, cw, aux = route(w["router"], x, k)                      # (T,k)
-    e_flat = idx.reshape(-1)                                     # (T*k,)
-    t_flat = torch.arange(T, device=dev).repeat_interleave(k)    # (T*k,)
+    if region is not None:
+        x, cw = region(x), region(cw)
+    e_flat = idx.reshape(-1)
+    t_flat = torch.arange(T, device=dev).repeat_interleave(k)
     w_flat = cw.reshape(-1)
 
     order = torch.argsort(e_flat, stable=True)
     se, st, sw = e_flat[order], t_flat[order], w_flat[order]
-    # position of each routed token within its expert segment
-    # bincount's count with a static shape (bincount's length follows the
-    # data, so it waits for the device and cannot be traced)
     counts = torch.zeros(E, dtype=torch.long, device=dev).scatter_add_(
-        0, e_flat, torch.ones_like(e_flat))                      # (E,)
-    seg_start = torch.cumsum(counts, 0) - counts                 # exclusive
+        0, e_flat, torch.ones_like(e_flat))
+    seg_start = torch.cumsum(counts, 0) - counts
     pos_in_e = torch.arange(T * k, device=dev) - seg_start[se]
-    keep = pos_in_e < C
-    dest = torch.where(keep, se * C + pos_in_e,
-                       torch.full_like(se, E * C))               # spare row
+    here = (pos_in_e < C) & (se >= e0) & (se < e0 + El)
+    dest = torch.where(here, (se - e0) * C + pos_in_e,
+                       torch.full_like(se, El * C))              # spare row
 
-    xt = x[st]                                                   # (T*k, d)
-    buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=dev)
-    buf[dest] = xt * keep[:, None].to(x.dtype)
-    buf = buf[:E * C].reshape(E, C, d)
+    # the token each local slot holds (T: a zero row)
+    slot_tok = torch.full((El * C + 1,), T, dtype=torch.long, device=dev)
+    slot_tok[dest] = torch.where(here, st, torch.full_like(st, T))
+    xz = torch.cat([x, x.new_zeros((1, d))])
+    buf = xz[slot_tok[:El * C]].reshape(El, C, d)
 
     if cfg.mlp_type == "swiglu":
         g = torch.bmm(buf, w["w_gate"])
@@ -122,15 +135,12 @@ def moe_apply(w: dict, x: torch.Tensor, cfg: ModelConfig
     else:
         h = F.gelu(torch.bmm(buf, w["w_in"]), approximate="tanh")
         y = torch.bmm(h, w["w_out"])
-    y = y.reshape(E * C, d)
+    yz = torch.cat([y.reshape(El * C, d), y.new_zeros((1, d))])
 
-    yt = y[torch.where(keep, dest, torch.zeros_like(dest))]
-    yt = yt * (sw * keep).to(y.dtype)[:, None]
-    # each token's k sorted positions, in ascending order (its experts in
-    # ascending order), added one after the other
+    scale = (sw * here).to(y.dtype)
     by_token = torch.argsort(st, stable=True).reshape(T, k)
-    contrib = yt[by_token]                                       # (T, k, d)
     out = torch.zeros((T, d), dtype=y.dtype, device=dev)
     for j in range(k):
-        out = out + contrib[:, j]
+        s = by_token[:, j]
+        out = out + yz[dest[s]] * scale[s][:, None]
     return out, aux

@@ -11,10 +11,11 @@ reference is a leaf-for-leaf copy, checkpoint leaf paths are the same, and
 gradients accumulate into the stacked leaves.  The reference's
 ``lax.scan`` over the stack becomes a Python loop over the layers, and
 ``jax.checkpoint`` (``flags.remat``) becomes ``torch.utils.checkpoint``
-around each attention layer of a training forward: the forward of every
-layer runs again in the backward, so under ``attn_impl="pallas"`` one
-dense step launches the attention forward kernel 2·L times and each
-backward kernel L times.
+around each attention layer and each rwkv6 layer of a training forward:
+the forward of every such layer runs again in the backward, so under
+``attn_impl="pallas"`` one dense step launches the attention forward
+kernel 2·L times and each backward kernel L times, and an ssm step the
+WKV-6 kernel 2·L times.
 
 Three entry points, as in the reference: ``make_loss_fn``,
 ``make_prefill_fn`` -> (last logits, cache) and ``make_decode_fn`` (one
@@ -32,22 +33,30 @@ other state leaves as new tensors (see ``make_decode_fn``).
 Sharding (``ctx``, a ``ShardCtx``): the reference partitions the same
 programs with GSPMD; the port runs them as explicit SPMD on local tensors
 (``sharding/comm.py``).  The state lives as DTensors in the reference's
-layouts (``sharding/specs.py``); each entry point turns every leaf into the
-form its use needs (``_compute_params``): this rank's heads of ``wq`` /
-``wk`` / ``wv`` / ``wo`` and its share of a dense MLP's hidden dim where the
-model axis divides the heads (Megatron tensor parallelism: the kernels run
-on the local heads), its rows of the vocab (the embedding lookup and the
-logits, vocab-parallel as in the reference), its experts under
-``moe_mode="ep_shardmap"`` (``sharding/ep.py``), every other leaf whole.
-Activations carry the batch rows of this rank's data shard where the data
-axes divide the batch (``batch_specs``' rule), else all of them; the model
-group computes the rest alike.  With ``sequence_parallel`` the residual
-stream between the layers of a dense / moe / audio stack keeps this rank's
-share of the sequence.  Kernels never see a DTensor.
+layouts (``sharding/specs.py``); each entry point — training, prefill and
+decode alike — turns every leaf into the form its use needs
+(``_compute_params``): this rank's heads of ``wq`` / ``wk`` / ``wv`` /
+``wo`` and its share of a dense MLP's hidden dim where the model axis
+divides the heads (Megatron tensor parallelism: the kernels run on the
+local heads), its rows of the vocab (the embedding lookup and the logits,
+vocab-parallel as in the reference), its experts where the model axis
+divides them (the pjit layer: ``moe_apply`` of this rank's experts over
+the routing of all the data group's tokens; ``moe_mode="ep_shardmap"``:
+``sharding/ep.py``),
+every other leaf whole.  Activations carry the batch rows of this rank's
+data shard where the data axes divide the batch (``batch_specs``' rule),
+else all of them; the model group computes the rest alike.  With
+``sequence_parallel`` the residual stream between the layers of a dense /
+moe / audio stack keeps this rank's share of the sequence.  The serving
+cache is this rank's shard in ``cache_specs``' layout (rows on the data
+axes, positions on the model axis): the prefill returns it, the decode
+attends over its positions and combines the partial softmax over the
+model group (``make_decode_fn``).  Kernels never see a DTensor.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Optional, Tuple
 
@@ -59,7 +68,9 @@ from repro_torch._tree import paths, tree_map, unflatten
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers, mamba2, rwkv6
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.attention import AttnSpec, attention, decode_attention
+from repro_torch.models.attention import (AttnSpec, attention,
+                                          combine_partials, decode_attention,
+                                          decode_attention_partial)
 from repro_torch.sharding import comm, ep
 
 
@@ -398,18 +409,6 @@ def attn_block(cfg, flags: RunFlags, ctx, w, ln, x, pos, *, window=0,
     return (out, kv) if return_kv else out
 
 
-def attn_block_decode(cfg, w, ln, x, q_pos, kcache, vcache, kv_pos, *,
-                      window=0):
-    """x (B,1,d); kcache/vcache (B,S,KH,hd) already containing this token."""
-    h = layers.rms_norm(x, ln, cfg.norm_eps)
-    B = x.shape[0]
-    q = (h @ w["wq"]).reshape(B, 1, cfg.n_heads, cfg.head_dim)
-    q = layers.apply_rope(q, q_pos, cfg.rope)
-    o = decode_attention(q, kcache, vcache, q_pos=q_pos, kv_pos=kv_pos,
-                         window=window)
-    return x + o.reshape(B, 1, cfg.d_q) @ w["wo"]
-
-
 def _mlp_split(cfg, w) -> bool:
     up = w["w_up"] if cfg.mlp_type == "swiglu" else w["w_in"]
     return up.shape[-1] < cfg.d_ff
@@ -443,10 +442,21 @@ def _moe_tokens(cfg, flags: RunFlags, ctx, w_moe, ht):
         raise ValueError(f"unknown moe_mode {flags.moe_mode!r}")
     # the reference's pjit layer: global semantics over every data
     # shard's tokens (capacity and drops), as GSPMD runs it
-    if not ctx.rows_split:
-        return moe_lib.moe_apply(w_moe, ht, cfg)
-    out, aux = moe_lib.moe_apply(w_moe, comm.gather_data(ht, ctx), cfg)
-    return comm.data_chunk(out, ctx), aux
+    x = comm.gather_data(ht, ctx) if ctx.rows_split else ht
+    up = w_moe["w_gate"] if cfg.mlp_type == "swiglu" else w_moe["w_in"]
+    El = up.shape[-3]
+    split = El < cfg.moe.n_experts
+    # this rank's experts: the model group's shares of the output sum to
+    # the layer's, and so do its shares of the gradient of the tokens and
+    # of the combine weights (the router is whole)
+    out, aux = moe_lib.moe_apply(
+        w_moe, x, cfg, ctx.model_rank * El if split else 0,
+        region=(lambda t: comm.to_model_region(t, ctx)) if split else None)
+    if ctx.rows_split:
+        out = comm.data_chunk(out, ctx)
+    if split:                   # the sum of the shares, over its rows only
+        out = comm.from_model_region(out, ctx)
+    return out, aux
 
 
 def moe_block(cfg, flags: RunFlags, ctx, w_moe, ln, x):
@@ -556,7 +566,8 @@ def _unstack(tree, L: int):
 # ---------------------------------------------------------------------------
 
 
-def _forward_dense(cfg, flags, ctx, bl, x, pos, aux, collect_cache):
+def _forward_dense(cfg, flags, ctx, bl, x, pos, aux, collect_cache,
+                   kv_keep=None):
     """dense, audio and moe: one attention layer and its mlp or moe a
     layer."""
     kvs = []
@@ -571,7 +582,7 @@ def _forward_dense(cfg, flags, ctx, bl, x, pos, aux, collect_cache):
                 aux = aux + a
             else:
                 x = mlp_block(cfg, wl["mlp"], wl["ln2"], x, ctx)
-            kvs.append(kv)
+            kvs.append(kv_keep(*kv) if kv_keep else kv)
             continue
         x, a = _remat_layer(cfg, flags, ctx, pos, x, wl)
         aux = _add_aux(aux, a)
@@ -602,7 +613,8 @@ def _cross_block(cfg, flags, cw, x, pos, patches, ppos):
     return x, (k, v)
 
 
-def _forward_vlm(cfg, flags, ctx, bl, x, pos, patches, collect_cache):
+def _forward_vlm(cfg, flags, ctx, bl, x, pos, patches, collect_cache,
+                 kv_keep=None):
     """Each super-layer: ``per`` self-attention layers, then the gated
     cross attention over the patch embeddings."""
     n_cross, per = bl["ln1"].shape[:2]
@@ -618,7 +630,7 @@ def _forward_vlm(cfg, flags, ctx, bl, x, pos, patches, collect_cache):
                 x, kv = attn_block(cfg, flags, ctx, wl["attn"], wl["ln1"], x,
                                    pos, return_kv=True)
                 x = mlp_block(cfg, wl["mlp"], wl["ln2"], x, ctx)
-                kvs.append(kv)
+                kvs.append(kv_keep(*kv) if kv_keep else kv)
             else:
                 x, _ = _remat_layer(cfg, flags, ctx, pos, x, wl)
         x, ckv = _cross_block(cfg, flags, _at(bl["cross"], ci), x, pos,
@@ -666,22 +678,36 @@ def _forward_hybrid(cfg, flags, ctx, bl, x, pos, collect_cache):
                "win_k": torch.stack(win_k), "win_v": torch.stack(win_v)}
 
 
+def _ssm_layer(cfg, flags, w, ln1, ln2, x, collect_cache=False):
+    """One rwkv6 layer from no state -> x, or (x, its cache parts)."""
+    h = layers.rms_norm(x, ln1, cfg.norm_eps)
+    shift0 = torch.zeros((h.shape[0], 1, h.shape[2]), dtype=h.dtype,
+                         device=h.device)
+    # state None: a zero state, through the WKV-6 kernel
+    y, tshift, tstate = rwkv6.time_mix(w["tmix"], h, cfg, shift0, None,
+                                       chunk=flags.wkv_chunk)
+    x = x + y
+    h = layers.rms_norm(x, ln2, cfg.norm_eps)
+    y, cshift = rwkv6.channel_mix(w["cmix"], h, shift0)
+    x = x + y
+    return (x, (tshift, tstate, cshift)) if collect_cache else x
+
+
 def _forward_ssm(cfg, flags, bl, x, collect_cache):
+    """Training under ``flags.remat`` recomputes each layer in the
+    backward, as the reference's ``jax.checkpoint`` of its scan body does
+    (either policy: the body names no output to keep)."""
     parts = []
     for li in range(cfg.n_layers):
-        w = _at(bl["rwkv"], li)
-        h = layers.rms_norm(x, bl["ln1"][li], cfg.norm_eps)
-        shift0 = torch.zeros((h.shape[0], 1, h.shape[2]), dtype=h.dtype,
-                             device=h.device)
-        # state None: a zero state, through the WKV-6 kernel
-        y, tshift, tstate = rwkv6.time_mix(w["tmix"], h, cfg, shift0, None,
-                                           chunk=flags.wkv_chunk)
-        x = x + y
-        h = layers.rms_norm(x, bl["ln2"][li], cfg.norm_eps)
-        y, cshift = rwkv6.channel_mix(w["cmix"], h, shift0)
-        x = x + y
+        args = (cfg, flags, _at(bl["rwkv"], li), bl["ln1"][li],
+                bl["ln2"][li], x)
         if collect_cache:
-            parts.append((tshift, tstate, cshift))
+            x, p = _ssm_layer(*args, collect_cache=True)
+            parts.append(p)
+        elif flags.remat:
+            x = _ckpt(_ssm_layer, *args)
+        else:
+            x = _ssm_layer(*args)
     if not collect_cache:
         return x, None
     return x, {name: torch.stack([p[i] for p in parts]) for i, name in
@@ -689,8 +715,10 @@ def _forward_ssm(cfg, flags, bl, x, collect_cache):
 
 
 def forward(cfg: ModelConfig, params, batch: dict, flags: RunFlags,
-            ctx: Any = None, *, collect_cache: bool = False):
-    """Returns (hidden (B,S,d), aux_losses, cache_parts or None)."""
+            ctx: Any = None, *, collect_cache: bool = False, kv_keep=None):
+    """Returns (hidden (B,S,d), aux_losses, cache_parts or None).
+    ``kv_keep`` maps each self-attention layer's collected (k, v) to what
+    the cache keeps of them (a sharded prefill: its slice)."""
     _check(cfg, ctx)
     cdt = getattr(torch, flags.compute_dtype)
     if cfg.frontend == "frames":
@@ -709,10 +737,11 @@ def forward(cfg: ModelConfig, params, batch: dict, flags: RunFlags,
     bl = params["blocks"]
     if cfg.family in ("dense", "audio", "moe"):
         x, aux, cache = _forward_dense(cfg, flags, ctx, bl, x, pos, aux,
-                                       collect_cache)
+                                       collect_cache, kv_keep)
     elif cfg.family == "vlm":
         x, cache = _forward_vlm(cfg, flags, ctx, bl, x, pos,
-                                batch["patches"].to(cdt), collect_cache)
+                                batch["patches"].to(cdt), collect_cache,
+                                kv_keep)
     elif cfg.family == "hybrid":
         x, cache = _forward_hybrid(cfg, flags, ctx, bl, x, pos,
                                    collect_cache)
@@ -726,8 +755,8 @@ def forward(cfg: ModelConfig, params, batch: dict, flags: RunFlags,
 # ---------------------------------------------------------------------------
 
 
-def _split_dim(cfg, flags: RunFlags, ctx: ShardCtx, path: str, ndim: int,
-               heads: bool) -> Optional[int]:
+def _split_dim(cfg, flags: RunFlags, ctx: ShardCtx, path: str,
+               ndim: int) -> Optional[int]:
     """The dim of a parameter leaf that stays split over the model axis
     in the form this rank computes with (None: the whole leaf)."""
     m = ctx.msize
@@ -737,7 +766,7 @@ def _split_dim(cfg, flags: RunFlags, ctx: ShardCtx, path: str, ndim: int,
     if path in ("embed", "lm_head"):
         return (0 if path == "embed" else ndim - 1) \
             if padded_vocab(cfg) % m == 0 else None
-    if "/attn/" in f"/{path}" and heads and cfg.n_heads % m == 0:
+    if "/attn/" in f"/{path}" and cfg.n_heads % m == 0:
         if leaf == "wq":
             return ndim - 1
         if leaf == "wo":
@@ -745,18 +774,19 @@ def _split_dim(cfg, flags: RunFlags, ctx: ShardCtx, path: str, ndim: int,
         if leaf in ("wk", "wv") and cfg.n_kv_heads % m == 0:
             return ndim - 1
         return None
-    if path.startswith(("blocks/mlp/", "blocks/shared/mlp/")) and heads \
+    if path.startswith(("blocks/mlp/", "blocks/shared/mlp/")) \
             and cfg.d_ff % m == 0:
         if leaf in ("w_gate", "w_up", "w_in"):
             return ndim - 1
         if leaf in ("w_down", "w_out"):
             return ndim - 2
-    if path.startswith("blocks/moe/") and leaf != "router" \
-            and flags.moe_mode == "ep_shardmap":
-        if cfg.moe.n_experts % m:
+    if path.startswith("blocks/moe/") and leaf != "router":
+        if flags.moe_mode == "ep_shardmap" and cfg.moe.n_experts % m:
             raise ValueError(f"ep_shardmap needs the model axis ({m}) to "
                              f"divide the {cfg.moe.n_experts} experts")
-        return 1
+        # pjit: the reference's rule puts the experts on the model axis
+        # where it divides them, else they stay whole
+        return 1 if cfg.moe.n_experts % m == 0 else None
     return None
 
 
@@ -793,15 +823,13 @@ def _compute_leaf(t, ctx: ShardCtx, dim: Optional[int],
     return t.narrow(dim, ctx.model_rank * n, n)
 
 
-def _compute_params(cfg, flags: RunFlags, params, ctx: Optional[ShardCtx],
-                    heads: bool = True):
+def _compute_params(cfg, flags: RunFlags, params, ctx: Optional[ShardCtx]):
     """Every leaf in the form this rank computes with (see the module
-    docstring): ``heads`` splits the attention heads and the dense MLPs
-    over the model axis (training); serving keeps them whole."""
+    docstring), in training and serving alike."""
     if ctx is None:
         return params
     return unflatten(params, [
-        _compute_leaf(t, ctx, _split_dim(cfg, flags, ctx, p, t.dim(), heads))
+        _compute_leaf(t, ctx, _split_dim(cfg, flags, ctx, p, t.dim()))
         for p, t in paths(params)])
 
 
@@ -849,52 +877,198 @@ def make_loss_fn(cfg: ModelConfig, flags: RunFlags, ctx: Any = None):
     return loss_fn
 
 
+# ---------------------------------------------------------------------------
+# The serving cache: cache_specs' layout, one rank's shard (without a
+# context every leaf is whole on the one rank: one chunk, no gathers)
+# ---------------------------------------------------------------------------
+
+
+def _whole_specs(tree) -> dict:
+    """A spec of all-None entries for each leaf of a cache tree."""
+    return {n: tuple((None,) * a.dim() for a in t) if isinstance(t, tuple)
+            else (None,) * t.dim() for n, t in tree.items()}
+
+
+@functools.lru_cache(maxsize=64)
+def cache_layout(cfg: ModelConfig, ctx: Optional[ShardCtx], B: int,
+                 max_len: int, S: Optional[int] = None):
+    """(meta tree of the whole cache, its ``cache_specs`` tree) of the
+    serving cache of ``B`` rows and ``max_len`` positions; ``S``: a
+    prefill's prompt length (a hybrid prefill's window is
+    ``min(attn_window, S)`` long).  Without a context no entry is split.
+    Cached: serving asks for the same few layouts again and again; the
+    trees are read, never written."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    from repro_torch.sharding.specs import cache_specs
+    # shapes only: meta tensors that no dispatch mode (the dry run's
+    # counter) takes for the program's
+    with _disable_current_modes():
+        shape = init_cache(cfg, B, max_len, device="meta")
+        if S is not None and cfg.family == "hybrid":
+            W = min(cfg.attn_window or S, S)
+            for name in ("win_k", "win_v", "win_pos"):
+                t = shape[name]
+                shape[name] = torch.empty(t.shape[:2] + (W,) + t.shape[3:],
+                                          dtype=t.dtype, device="meta")
+    if ctx is None:
+        return shape, _whole_specs(shape)
+    return shape, cache_specs(cfg, shape, ctx.mesh,
+                              data_axes=tuple(ctx.data_axes),
+                              model_axis=ctx.model_axis)
+
+
+def _entry_chunk(ctx: Optional[ShardCtx], entry) -> Tuple[int, int]:
+    """(this rank's index, the number of chunks) along a spec entry."""
+    if entry is None:
+        return 0, 1
+    if entry == ctx.model_axis:
+        return ctx.model_rank, ctx.msize
+    return ctx.data_rank, ctx.dsize
+
+
+def _leaf_items(tree, specs):
+    """(name, index in a tuple leaf or None, leaf, spec) of a cache tree."""
+    for name, t in tree.items():
+        if isinstance(t, tuple):
+            for i, (a, sp) in enumerate(zip(t, specs[name])):
+                yield name, i, a, sp
+        else:
+            yield name, None, t, specs[name]
+
+
+def _rebuild(tree, items):
+    out = {}
+    for name, i, t in items:
+        if i is None:
+            out[name] = t
+        else:
+            out[name] = out.get(name, ()) + (t,)
+    return out
+
+
+def _local_dims(t, spec, ctx: Optional[ShardCtx], skip=()):
+    """``t`` (whole along its spec's split dims but ``skip``) narrowed to
+    this rank's chunk of each of them."""
+    for d, entry in enumerate(spec):
+        if d in skip:
+            continue
+        r, n = _entry_chunk(ctx, entry)
+        if n > 1:
+            t = t.narrow(d, r * (t.shape[d] // n), t.shape[d] // n)
+    return t
+
+
+def _whole_dims(t, spec, ctx: Optional[ShardCtx], skip=()):
+    """``t`` (this rank's shard) gathered along its spec's split dims but
+    ``skip``."""
+    for d, entry in enumerate(spec):
+        if d in skip or _entry_chunk(ctx, entry)[1] == 1:
+            continue
+        t = comm.gather_model(t, ctx, d) if entry == ctx.model_axis \
+            else comm.gather_data(t, ctx, d)
+    return t
+
+
+def _only(entry, d: int, ndim: int) -> tuple:
+    """A spec that splits dim ``d`` as ``entry`` does, and no other."""
+    return tuple(entry if j == d else None for j in range(ndim))
+
+
+def _rows_skip(name: str, split: bool) -> tuple:
+    """The dims of a cache leaf that the rows of this rank already are."""
+    return (_CACHE_BATCH_AXIS[name],) if split else ()
+
+
+def _positions(spec, ctx: Optional[ShardCtx], dim: int, n_local: int) -> int:
+    """The first position of this rank's slice along ``dim`` of a cache
+    leaf (0 where the dim is whole)."""
+    r, _ = _entry_chunk(ctx, spec[dim])
+    return r * n_local
+
+
+def _row_ctx(ctx: Optional[ShardCtx], B: int):
+    """(whether this rank computes only its data shard's rows of a batch
+    of ``B``, the context that its activations travel with)."""
+    if ctx is None:
+        return False, None
+    split = ctx.splits_batch(B)
+    return split, dataclasses.replace(ctx, rows_split=split)
+
+
 def make_prefill_fn(cfg: ModelConfig, flags: RunFlags, ctx: Any,
                     max_len: int):
     """Returns fn(params, batch) -> (last_logits (B,Vp), cache dict).
-    Under ``ctx`` every rank computes the whole batch and returns the
-    whole cache (the serving engine places it in ``decode_shardings``'
-    layout); the embedding, the logits and an expert-parallel moe layer
-    split their work over the model axis."""
+    Under ``ctx`` the batch is the global one (every rank the same): a
+    rank computes its data shard's rows where the data axes divide the
+    batch (``batch_specs``' rule), with the split weights of training
+    (``_compute_params``: its heads, its share of a dense MLP's hidden
+    dim, its experts), and returns its rows' logits and its shard of the
+    cache in ``cache_specs``' layout (``cache_layout``): k / v and
+    ``kv_pos`` with their positions on the model axis (each layer's k / v
+    of all KV heads, gathered over the model group where the heads are
+    split, then cut to this rank's positions), a vlm's patches and a
+    hybrid's window slots likewise, the SSM states with their heads on
+    it.  Without a context the one rank's shard is the whole cache."""
     _check(cfg, ctx)
 
     @torch.no_grad()
     def prefill(params, batch):
-        params = cast_params(params, getattr(torch, flags.compute_dtype))
-        params = _compute_params(cfg, flags, params, ctx, heads=False)
-        x, _, parts = forward(cfg, params, batch, flags, ctx,
-                              collect_cache=True)
-        logits = lm_logits(cfg, params, x[:, -1:], ctx)[:, 0]
-        B, S = x.shape[0], x.shape[1]
-        return logits, _grow_cache(cfg, parts, B, S, max_len)
+        params = _compute_params(
+            cfg, flags, cast_params(params, getattr(torch, flags.compute_dtype)),
+            ctx)
+        lead = batch["frames" if cfg.frontend == "frames" else "tokens"]
+        B, S = lead.shape[:2]
+        split, lctx = _row_ctx(ctx, B)
+        if split:
+            batch = {k: comm.data_chunk(v, ctx) for k, v in batch.items()}
+        _, specs = cache_layout(cfg, ctx, B, max_len, S)
+        kv_keep = None
+        if "k" in specs:
+            assert S <= max_len, (S, max_len)
+            # this rank's positions of each layer's k / v, padded to its
+            # slice
+            Sl = max_len // _entry_chunk(ctx, specs["k"][2])[1]
+            lo = _positions(specs["k"], ctx, 2, Sl)
+            n = max(0, min(S, lo + Sl) - lo)
+
+            def kv_keep(k, v):
+                return tuple(F.pad(t.narrow(1, min(lo, S), n),
+                                   (0, 0, 0, 0, 0, Sl - n)) for t in (k, v))
+        x, _, parts = forward(cfg, params, batch, flags, lctx,
+                              collect_cache=True, kv_keep=kv_keep)
+        logits = lm_logits(cfg, params, x[:, -1:], lctx)[:, 0]
+        dev = x.device
+        out = {}
+        if "k" in specs:
+            p = torch.arange(lo, lo + Sl, dtype=torch.int32, device=dev)
+            out["kv_pos"] = torch.where(p < S, p, torch.full_like(p, -1)) \
+                .expand(x.shape[0], Sl).contiguous()
+        if cfg.family == "hybrid":
+            _window_ring(parts, S)
+        items = []
+        for name, i, t, spec in _leaf_items(parts, specs):
+            if name not in ("k", "v"):        # k / v are this rank's already
+                t = _local_dims(t, spec, ctx, _rows_skip(name, split))
+            items.append((name, i, t))
+        out.update(_rebuild(parts, items))
+        out["pos"] = torch.full((B,), S, dtype=torch.int32, device=dev)
+        return logits, {k: out[k] for k in specs}
     return prefill
 
 
-def _grow_cache(cfg, parts, B, S, max_len):
-    """Pad prefill-collected cache parts out to max_len and add bookkeeping."""
-    out = dict(parts or {})
-    dev = next(iter(out.values())).device if out else None
-    if "k" in out:                                    # dense/moe/vlm/audio
-        pad = max_len - S
-        assert pad >= 0, (S, max_len)
-        out["k"] = F.pad(out["k"], (0, 0, 0, 0, 0, pad))
-        out["v"] = F.pad(out["v"], (0, 0, 0, 0, 0, pad))
-        out["kv_pos"] = torch.cat([
-            torch.arange(S, dtype=torch.int32, device=dev).expand(B, S),
-            torch.full((B, pad), -1, dtype=torch.int32, device=dev)], dim=1)
-    if cfg.family == "hybrid":
-        W = out["win_k"].shape[2]
-        # Align the window cache to the decode ring-slot convention
-        # slot = pos % W: the collected slice holds positions S-W..S-1 at
-        # indices 0..W-1, so roll by (S - W) % W to place p at p % W.
-        shift = (S - W) % W
-        out["win_k"] = torch.roll(out["win_k"], shift, dims=2)
-        out["win_v"] = torch.roll(out["win_v"], shift, dims=2)
-        out["win_pos"] = torch.roll(
-            torch.arange(S - W, S, dtype=torch.int32, device=dev)
-            .expand(out["win_k"].shape[:3]), shift, dims=2)
-    out["pos"] = torch.full((B,), S, dtype=torch.int32, device=dev)
-    return out
+def _window_ring(parts: dict, S: int) -> None:
+    """Align a prefill's window cache to the decode ring-slot convention
+    slot = pos % W: the collected slice holds positions S-W..S-1 at
+    indices 0..W-1, so roll by (S - W) % W to place p at p % W; adds
+    ``win_pos``."""
+    W = parts["win_k"].shape[2]
+    shift = (S - W) % W
+    parts["win_k"] = torch.roll(parts["win_k"], shift, dims=2)
+    parts["win_v"] = torch.roll(parts["win_v"], shift, dims=2)
+    parts["win_pos"] = torch.roll(
+        torch.arange(S - W, S, dtype=torch.int32,
+                     device=parts["win_k"].device)
+        .expand(parts["win_k"].shape[:3]), shift, dims=2)
 
 
 def init_cache(cfg: ModelConfig, B: int, max_len: int, dtype=torch.bfloat16,
@@ -961,51 +1135,99 @@ _CACHE_BATCH_AXIS = {
 _WINDOW_FILL = {"win_k": 0, "win_v": 0, "win_pos": -1}
 
 
-def _insert_leaf(name: str, big: torch.Tensor, small: torch.Tensor,
-                 slot: int) -> None:
-    ax = _CACHE_BATCH_AXIS.get(name, 0)
-    dst = big.select(ax, slot)
-    src = small.select(ax, 0).to(big.dtype)
-    if name in _WINDOW_FILL and src.shape[1] < dst.shape[1]:
-        # a prompt shorter than the window (and than max_len): its prefill
-        # window holds positions 0..S-1 at indices 0..S-1 — the decode
-        # ring slots p % W for the serving cache's longer window W.  The
-        # reference's cache_insert cannot broadcast the short window into
-        # the long one and fails here.
-        dst.fill_(_WINDOW_FILL[name])
-        dst = dst.narrow(1, 0, src.shape[1])
-    dst.copy_(src)
 
 
-def cache_insert(cache: dict, single: dict, slot: int) -> dict:
+def cache_insert(cache: dict, single: dict, slot: int, *, pad: int = 0,
+                 ctx: Optional[ShardCtx] = None, specs=None) -> dict:
     """Insert a batch-1 cache (from prefill) into slot ``slot`` of a
     batched cache — the continuous-batching primitive of serving.  Writes
     the slot of ``cache`` in place (each leaf keeps its type) and returns
-    ``cache``."""
-    for name, big in cache.items():
-        small = single[name]
-        for b, s in (zip(big, small) if isinstance(big, tuple)
-                     else ((big, small),)):
-            _insert_leaf(name, b, s, slot)
+    ``cache``; the first ``pad`` positions of the row are marked invalid
+    in ``kv_pos`` (a left-padded prompt).
+
+    Under ``ctx`` both trees are this rank's shards and ``specs`` their
+    layouts (the serving cache's and the one-row prefill's
+    ``cache_layout`` specs): only the data shard that holds row ``slot``
+    writes it; a dim that the two layouts split alike is copied slice to
+    slice, any other is gathered over its group for the one row (a hybrid
+    window shorter than the cache's, a state dim that a one-row prefill
+    splits over the data axes)."""
+    big, small = specs if specs is not None else (_whole_specs(cache),) * 2
+    for name, i, dst, bspec in _leaf_items(cache, big):
+        ax = _CACHE_BATCH_AXIS[name]
+        src = single[name] if i is None else single[name][i]
+        sspec = small[name] if i is None else small[name][i]
+        for d, (be, se) in enumerate(zip(bspec, sspec)):
+            if d == ax or (be == se and src.shape[d] == dst.shape[d]):
+                continue
+            src = _whole_dims(src, _only(se, d, src.dim()), ctx)
+            full = dst.shape[d] * _entry_chunk(ctx, be)[1]
+            if name in _WINDOW_FILL and src.shape[d] < full:
+                # a prompt shorter than the window (and than max_len): its
+                # prefill window holds positions 0..S-1 at indices 0..S-1
+                # — the decode ring slots p % W for the serving cache's
+                # longer window W, the rest empty; then this rank's slots
+                # of it.  The reference's cache_insert cannot broadcast
+                # the short window into the long one and fails here.
+                fill = torch.full(src.shape[:d] + (full - src.shape[d],)
+                                  + src.shape[d + 1:], _WINDOW_FILL[name],
+                                  dtype=src.dtype, device=src.device)
+                src = torch.cat([src, fill], dim=d)
+            src = _local_dims(src, _only(be, d, src.dim()), ctx)
+        # every rank took part in the gathers; the row's owners write
+        r, _ = _entry_chunk(ctx, bspec[ax])
+        Bl = dst.shape[ax]
+        if slot // Bl != r:
+            continue
+        row = slot - r * Bl
+        dst.select(ax, row).copy_(src.select(ax, 0).to(dst.dtype))
+        if name == "kv_pos" and pad:
+            lo = _positions(bspec, ctx, 1, dst.shape[1])
+            dst[row, :max(0, min(pad - lo, dst.shape[1]))] = -1
     return cache
 
 
-def make_decode_fn(cfg: ModelConfig, flags: RunFlags, ctx: Any = None):
+def make_decode_fn(cfg: ModelConfig, flags: RunFlags, ctx: Any = None,
+                   max_len: Optional[int] = None):
     """Returns fn(params, cache, tokens (B,)) -> (logits (B,Vp), cache).
     The token's k/v (dense, moe, vlm) or window entries (hybrid) are
     written into the given cache in place; the per-layer states are new
     tensors, as in the reference (they take the compute type).  The vlm's
-    cross k / v are read, never written.  Under ``ctx`` the cache is the
-    whole one on every rank, as in ``make_prefill_fn``."""
+    cross k / v are read, never written.
+
+    Under ``ctx`` the cache is this rank's shard of the serving cache of
+    ``B`` rows and ``max_len`` positions in ``cache_specs``' layout (each
+    leaf's local tensor; ``pos`` is whole; ``max_len`` may be left out
+    where the context has no model axis, or for the ssm family),
+    ``tokens`` the global batch's, and the logits are this rank's rows'.
+    It computes with the split weights and never gathers the cache:
+    context-parallel decode attention (``_CacheView``) over this rank's
+    positions, every query head (the local heads' q gathered over the
+    model group: a few KB a token, where a whole ``wq`` would hold every
+    head's weights on every rank), its partial softmax combined over the
+    model group (``combine_partials``); the token's k / v of all KV heads
+    written by the rank that holds its position.  The SSM states (a few
+    hundred MB a data shard at most) are gathered for the step along
+    their model-split heads (and, where the data axes do not divide the
+    batch, their data-split state dim), and the new ones cut back to this
+    rank's shard.  Without a context the same code runs on the whole
+    cache: one slice, no gathers."""
     _check(cfg, ctx)
+    if ctx is not None and max_len is None and ctx.msize > 1 and \
+            cfg.family != "ssm":
+        raise ValueError("make_decode_fn needs max_len under a context "
+                         "with a model axis")
 
     @torch.no_grad()
     def decode(params, cache, tokens):
         cdt = getattr(torch, flags.compute_dtype)
-        params = _compute_params(cfg, flags, cast_params(params, cdt), ctx,
-                                 heads=False)
+        params = _compute_params(cfg, flags, cast_params(params, cdt), ctx)
+        view = _CacheView(cfg, ctx, tokens.shape[0], max_len, cache)
+        lctx = view.lctx
+        pos_all = cache["pos"]                                # (B,)
+        pos = view.rows(pos_all)
+        tokens = view.rows(tokens)
         B = tokens.shape[0]
-        pos = cache["pos"]                                    # (B,)
         qpos = pos[:, None]
         x = embed_lookup(cfg, params, tokens[:, None], ctx).to(cdt)
         bl = params["blocks"]
@@ -1015,28 +1237,32 @@ def make_decode_fn(cfg: ModelConfig, flags: RunFlags, ctx: Any = None):
         if cfg.family in ("dense", "audio", "moe"):
             kc, vc = cache["k"], cache["v"]                   # (L,B,S,KH,hd)
             kv_pos = cache["kv_pos"]
-            _set_rows(kv_pos, barange, pos_l, pos)
+            at = pos_l - view.lo("k", kc.shape[2])
+            _set_rows(kv_pos, barange, at, pos)
             for li, wl in enumerate(_unstack(bl, cfg.n_layers)):
-                x = _decode_attn_layer(cfg, wl, x, qpos, kc[li], vc[li],
-                                       kv_pos, pos_l, barange)
+                x = _decode_attn(cfg, wl["attn"], wl["ln1"], x, qpos, kc[li],
+                                 vc[li], kv_pos, at, barange, view, "k")
                 if "moe" in wl:
-                    x, _ = moe_block(cfg, flags, ctx, wl["moe"], wl["ln2"], x)
+                    x, _ = moe_block(cfg, flags, lctx, wl["moe"], wl["ln2"],
+                                     x)
                 else:
-                    x = mlp_block(cfg, wl["mlp"], wl["ln2"], x)
-            new_cache = dict(cache, pos=pos + 1)
+                    x = mlp_block(cfg, wl["mlp"], wl["ln2"], x, lctx)
+            new_cache = dict(cache, pos=pos_all + 1)
 
         elif cfg.family == "vlm":
             kc, vc = cache["k"], cache["v"]               # (n_self,B,S,KH,hd)
             kv_pos = cache["kv_pos"]
-            _set_rows(kv_pos, barange, pos_l, pos)
+            at = pos_l - view.lo("k", kc.shape[2])
+            _set_rows(kv_pos, barange, at, pos)
             n_cross, per = bl["ln1"].shape[:2]
             self_w = {n: bl[n] for n in ("attn", "mlp", "ln1", "ln2")}
             for ci in range(n_cross):
                 for pi in range(per):
                     wl, li = _at(self_w, ci, pi), ci * per + pi
-                    x = _decode_attn_layer(cfg, wl, x, qpos, kc[li], vc[li],
-                                           kv_pos, pos_l, barange)
-                    x = mlp_block(cfg, wl["mlp"], wl["ln2"], x)
+                    x = _decode_attn(cfg, wl["attn"], wl["ln1"], x, qpos,
+                                     kc[li], vc[li], kv_pos, at, barange,
+                                     view, "k")
+                    x = mlp_block(cfg, wl["mlp"], wl["ln2"], x, lctx)
                 cw = _at(bl["cross"], ci)
                 h = layers.rms_norm(x, cw["ln_q"], cfg.norm_eps)
                 q = (h @ cw["wq"]).reshape(B, 1, cfg.n_heads, cfg.head_dim)
@@ -1045,100 +1271,180 @@ def make_decode_fn(cfg: ModelConfig, flags: RunFlags, ctx: Any = None):
                 # non-causal cross attention: q_pos = kv_pos = 0 everywhere
                 zero = lambda n: torch.zeros((B, n), dtype=torch.int32,
                                              device=x.device)
-                o = decode_attention(q, ck, cv, q_pos=zero(1),
-                                     kv_pos=zero(M))
+                o = _attend(view, "cross_k", q, ck, cv, zero(1), zero(M))
                 x = x + torch.tanh(cw["gate"]).to(x.dtype) * (
                     o.reshape(B, 1, cfg.d_q) @ cw["wo"])
                 h = layers.rms_norm(x, cw["ln2"], cfg.norm_eps)
                 x = x + torch.tanh(cw["gate_mlp"]).to(x.dtype) * \
                     layers.mlp_apply(cw["mlp"], h, cfg.mlp_type)
-            new_cache = dict(cache, pos=pos + 1)
+            new_cache = dict(cache, pos=pos_all + 1)
 
         elif cfg.family == "hybrid":
             shared = bl["shared"]
             n_super, per = bl["mamba_ln"].shape[:2]
-            W = cache["win_k"].shape[2]
-            slot = pos_l % W
+            mstate = view.whole("mamba_state", cache["mamba_state"])
+            mtails = tuple(view.whole("conv_tails", t, i)
+                           for i, t in enumerate(cache["conv_tails"]))
             wk, wv, wp = cache["win_k"], cache["win_v"], cache["win_pos"]
+            slot = pos_l % (wk.shape[2] * view.chunks("win_k", 2))
+            at = slot - view.lo("win_k", wk.shape[2])
             states, tails = [], []
             for si in range(n_super):
                 for pi in range(per):
                     h = layers.rms_norm(x, bl["mamba_ln"][si, pi],
                                         cfg.norm_eps)
                     y, (st, tl) = mamba2.mamba2_decode(
-                        _at(bl["mamba"], si, pi), h, cfg,
-                        cache["mamba_state"][si, pi],
-                        tuple(t[si, pi] for t in cache["conv_tails"]))
+                        _at(bl["mamba"], si, pi), h, cfg, mstate[si, pi],
+                        tuple(t[si, pi] for t in mtails))
                     x = x + y
                     states.append(st)
                     tails.append(tl)
                 # shared attention with the ring-buffer window cache
-                h = layers.rms_norm(x, shared["ln1"], cfg.norm_eps)
-                k1 = (h @ shared["attn"]["wk"]).reshape(B, 1, cfg.n_kv_heads,
-                                                        cfg.head_dim)
-                v1 = (h @ shared["attn"]["wv"]).reshape(B, 1, cfg.n_kv_heads,
-                                                        cfg.head_dim)
-                k1 = layers.apply_rope(k1, qpos, cfg.rope)
-                wk[si, barange, slot] = k1[:, 0].to(wk.dtype)
-                wv[si, barange, slot] = v1[:, 0].to(wv.dtype)
-                wp[si, barange, slot] = pos
-                x = attn_block_decode(cfg, shared["attn"], shared["ln1"], x,
-                                      qpos, wk[si], wv[si], wp[si],
-                                      window=cfg.attn_window)
-                x = mlp_block(cfg, shared["mlp"], shared["ln2"], x)
+                _set_rows(wp[si], barange, at, pos)
+                x = _decode_attn(cfg, shared["attn"], shared["ln1"], x, qpos,
+                                 wk[si], wv[si], wp[si], at, barange, view,
+                                 "win_k", cfg.attn_window)
+                x = mlp_block(cfg, shared["mlp"], shared["ln2"], x, lctx)
             grid = lambda ts: torch.stack(ts).reshape((n_super, per)
                                                       + ts[0].shape)
             new_cache = dict(
-                cache, mamba_state=grid(states),
-                conv_tails=tuple(grid([t[i] for t in tails])
-                                 for i in range(3)),
-                pos=pos + 1)
+                cache, pos=pos_all + 1,
+                mamba_state=view.local("mamba_state", grid(states)),
+                conv_tails=tuple(
+                    view.local("conv_tails", grid([t[i] for t in tails]), i)
+                    for i in range(3)))
 
         else:                                                 # ssm
+            st = {n: view.whole(n, cache[n])
+                  for n in ("tmix_shift", "wkv_state", "cmix_shift")}
             parts = []
             for li in range(cfg.n_layers):
                 w = _at(bl["rwkv"], li)
                 h = layers.rms_norm(x, bl["ln1"][li], cfg.norm_eps)
                 y, tsh, wst = rwkv6.time_mix(w["tmix"], h, cfg,
-                                             cache["tmix_shift"][li],
-                                             cache["wkv_state"][li])
+                                             st["tmix_shift"][li],
+                                             st["wkv_state"][li])
                 x = x + y
                 h = layers.rms_norm(x, bl["ln2"][li], cfg.norm_eps)
                 y, csh = rwkv6.channel_mix(w["cmix"], h,
-                                           cache["cmix_shift"][li])
+                                           st["cmix_shift"][li])
                 x = x + y
                 parts.append((tsh, wst, csh))
-            new_cache = dict(cache, pos=pos + 1, **{
-                name: torch.stack([p[i] for p in parts]) for i, name in
-                enumerate(("tmix_shift", "wkv_state", "cmix_shift"))})
+            new_cache = dict(cache, pos=pos_all + 1, **{
+                name: view.local(name, torch.stack([p[i] for p in parts]))
+                for i, name in enumerate(("tmix_shift", "wkv_state",
+                                          "cmix_shift"))})
 
-        logits = lm_logits(cfg, params, x, ctx)[:, 0]
+        logits = lm_logits(cfg, params, x, lctx)[:, 0]
         return logits, new_cache
 
     return decode
 
 
+class _CacheView:
+    """One decode step's view of the serving cache's layout: the rows of
+    this rank, the first position of its slice of a leaf, and the moves
+    of the SSM states between its shard and the whole (in their non-row
+    dims) that the step computes with.  Without a context every leaf is
+    whole: one chunk, position 0, no moves."""
+
+    def __init__(self, cfg, ctx: Optional[ShardCtx], B: int,
+                 max_len: Optional[int], cache: dict):
+        self.ctx = ctx
+        self.split, self.lctx = _row_ctx(ctx, B)
+        if ctx is None:
+            self.specs = _whole_specs(cache)
+            return
+        # with no model axis the cache's positions are whole: its length
+        # is max_len (a hybrid's window: as long as max_len or shorter)
+        ml = max_len if max_len is not None else (
+            cache["kv_pos"].shape[1] if "kv_pos" in cache else
+            cache["win_k"].shape[2] if "win_k" in cache else 1)
+        self.specs = cache_layout(cfg, ctx, B, ml)[1]
+
+    def rows(self, t):
+        return comm.data_chunk(t, self.ctx) if self.split else t
+
+    def _spec(self, name, i=None):
+        sp = self.specs[name]
+        return sp[i] if i is not None else sp
+
+    def chunks(self, name, dim) -> int:
+        return _entry_chunk(self.ctx, self._spec(name)[dim])[1]
+
+    def lo(self, name, n_local: int) -> int:
+        """The first position (slot) of this rank's slice of dim 2 of
+        ``name`` (k, v, a window or the vlm's patches), ``n_local`` long."""
+        return _positions(self._spec(name), self.ctx, 2, n_local)
+
+    def whole(self, name, t, i=None):
+        return _whole_dims(t, self._spec(name, i), self.ctx,
+                           _rows_skip(name, self.split))
+
+    def local(self, name, t, i=None):
+        return _local_dims(t, self._spec(name, i), self.ctx,
+                           _rows_skip(name, self.split))
+
+
+def _attend(view: _CacheView, name, q, k, v, q_pos, kv_pos, *, window=0):
+    """``decode_attention`` of q (every head) over this rank's slice of
+    the cache leaf ``name``'s positions, combined over the model group
+    where the slices differ between its ranks."""
+    if view.chunks(name, 2) == 1:
+        return decode_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
+                                window=window)
+    ctx = view.ctx
+    acc, m, l = decode_attention_partial(q, k, v, q_pos=q_pos,
+                                         kv_pos=kv_pos, window=window)
+    o = combine_partials(acc, m, l,
+                         max_fn=lambda t: comm.max_model(t, ctx),
+                         sum_fn=lambda a, b: comm.sum_model(a, b, sctx=ctx))
+    return o.to(q.dtype)
+
+
 def _set_rows(buf, barange, pos, val):
     """``buf[b, pos[b]] = val[b]`` for every row whose position lies inside
-    ``buf``'s second dim; a row past the end is left as it is, as the
+    ``buf``'s second dim; a row outside it is left as it is, as the
     reference's scatter drops out-of-bounds updates (an idle serving slot
-    keeps counting past ``max_len``).  No host synchronisation: the row's
-    last entry is rewritten with its own value."""
-    inside = pos < buf.shape[1]
-    idx = pos.clamp(max=buf.shape[1] - 1)
+    keeps counting past ``max_len``; under a context, a position on
+    another rank's slice).  No host synchronisation: the row's nearest
+    entry is rewritten with its own value."""
+    inside = (pos >= 0) & (pos < buf.shape[1])
+    idx = pos.clamp(0, buf.shape[1] - 1)
     mask = inside.view(-1, *([1] * (val.dim() - 1)))
     buf[barange, idx] = torch.where(mask, val, buf[barange, idx])
 
 
-def _decode_attn_layer(cfg, wl, x, qpos, kc_l, vc_l, kv_pos, pos, barange):
-    """Project k/v for this token, write them into this layer's cache
-    slice ``kc_l``/``vc_l`` (views into the serving cache), and attend."""
-    h = layers.rms_norm(x, wl["ln1"], cfg.norm_eps)
-    B = x.shape[0]
-    k1 = (h @ wl["attn"]["wk"]).reshape(B, 1, cfg.n_kv_heads, cfg.head_dim)
-    v1 = (h @ wl["attn"]["wv"]).reshape(B, 1, cfg.n_kv_heads, cfg.head_dim)
+
+def _decode_attn(cfg, w, ln, x, qpos, kc, vc, kv_pos, at, barange,
+                 view: _CacheView, name: str, window: int = 0):
+    """One attention layer of a decode step: the token's k / v of all KV
+    heads into this rank's slice of the layer's cache ``kc`` / ``vc``
+    (views into the serving cache; ``at``: the token's index there,
+    outside it on the other ranks), every query head over the slice
+    (``_attend``), and this rank's heads of the output through its rows
+    of ``wo``, summed over the model group."""
+    ctx = view.ctx
+    h = layers.rms_norm(x, ln, cfg.norm_eps)
+    B, hd = x.shape[0], cfg.head_dim
+    Hl = w["wq"].shape[-1] // hd
+    tp = Hl < cfg.n_heads
+    wk, wv = w["wk"], w["wv"]
+    k1 = (h @ wk).reshape(B, 1, wk.shape[-1] // hd, hd)
+    v1 = (h @ wv).reshape(B, 1, wv.shape[-1] // hd, hd)
     k1 = layers.apply_rope(k1, qpos, cfg.rope)
-    _set_rows(kc_l, barange, pos, k1[:, 0].to(kc_l.dtype))
-    _set_rows(vc_l, barange, pos, v1[:, 0].to(vc_l.dtype))
-    return attn_block_decode(cfg, wl["attn"], wl["ln1"], x, qpos, kc_l, vc_l,
-                             kv_pos)
+    if k1.shape[2] < cfg.n_kv_heads:
+        k1, v1 = comm.gather_model(k1, ctx, 2), comm.gather_model(v1, ctx, 2)
+    _set_rows(kc, barange, at, k1[:, 0].to(kc.dtype))
+    _set_rows(vc, barange, at, v1[:, 0].to(vc.dtype))
+    q = (h @ w["wq"]).reshape(B, 1, Hl, hd)
+    q = layers.apply_rope(q, qpos, cfg.rope)
+    if tp:
+        q = comm.gather_model(q, ctx, 2)
+    o = _attend(view, name, q, kc, vc, qpos, kv_pos, window=window)
+    if tp:
+        o = o.narrow(2, ctx.model_rank * Hl, Hl)
+    y = o.reshape(B, 1, Hl * hd) @ w["wo"]
+    if tp:
+        y = comm.from_model_region(y, ctx)
+    return x + y

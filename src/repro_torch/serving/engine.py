@@ -17,11 +17,17 @@ same for the same request stream.  Prefill and decode are plain callables
 ``profiler()`` and ``get_state`` / ``set_state`` serve the data-movement
 profiler and time-travel replay.  Under a sharding context (``ctx``) the
 parameters are placed by ``prefill_shardings`` (unless they are DTensors
-already) and the cache by ``decode_shardings``; prefill and decode run on
-the whole cache (see ``make_prefill_fn``), which goes back into its layout
-after each step (along mesh dims of one rank nothing is copied).  The
-cache and the parameters live on ``device`` (default ``"cuda"``), and the
-argmax tokens come back to the host as in the reference.  For the ssm and
+already) and the cache lives as DTensors in ``decode_shardings``' layout,
+made from local zeros: each rank holds its shard and never the whole.  A
+prefill computes one request on every rank and returns its shard of the
+one-row cache, which ``cache_insert`` writes into the rows of the
+data shard that owns the slot; a decode step hands ``make_decode_fn`` the
+local shards, keeps what comes back as the local shards of the same
+layout, takes the argmax of its rows' logits and gathers the (B,) token
+ids over the data axes (see ``make_decode_fn``).  The control plane is
+the same on every rank.  The cache and the parameters live on ``device``
+(default ``"cuda"``), and the argmax tokens come back to the host as in
+the reference.  For the ssm and
 hybrid families the prefill
 runs the WKV-6 / SSD scan kernels; as in the reference, a prompt of those
 families should be a multiple of ``prompt_pad`` long, or the left padding
@@ -46,10 +52,12 @@ from repro_torch.core.counters import CounterBank, CounterSpec
 from repro_torch.core.registers import RO, RegisterFile
 from repro_torch.launch.steps import decode_shardings, prefill_shardings
 from repro_torch.models.transformer import (RunFlags, cache_insert,
-                                            init_cache, make_decode_fn,
-                                            make_prefill_fn)
+                                            cache_layout, init_cache,
+                                            make_decode_fn, make_prefill_fn)
 from repro_torch.serving.kvpool import KVPool
-from repro_torch.sharding.specs import is_sharded, place, whole_tree
+from repro_torch.sharding import comm
+from repro_torch.sharding.specs import (from_local_tree, is_sharded,
+                                        local_tree, map_specs, place)
 
 CTRL, STATUS, DOORBELL = 0x00, 0x04, 0x08
 SUBMIT_ID, SUBMIT_LEN, SUBMIT_MAXNEW = 0x0C, 0x10, 0x14
@@ -118,18 +126,20 @@ class ServingEngine:
         # prefill) on the engine clock, in cycles
         self.step_cycles = float(step_cycles)
 
-        self._cache_sh = None
+        self.ctx = ctx
+        self._cache_sh = self._cache_shape = None
         if ctx is not None:
             shape = ShapeConfig("serve", max_len, max_slots, "decode")
             if not is_sharded(params):
                 self.params = place(params, prefill_shardings(
                     cfg, shape, ctx.mesh, ctx)[1])
-            self._cache_sh = decode_shardings(cfg, shape, ctx.mesh, ctx)[3]
+            _, _, self._cache_shape, self._cache_sh, _, _ = \
+                decode_shardings(cfg, shape, ctx.mesh, ctx)
         if jit_fns is not None:
             self._prefill, self._decode = jit_fns
         else:
             self._prefill = make_prefill_fn(cfg, flags, ctx, max_len)
-            self._decode = make_decode_fn(cfg, flags, ctx)
+            self._decode = make_decode_fn(cfg, flags, ctx, max_len)
         self.reset(fault_plan=fault_plan)
 
     @property
@@ -150,8 +160,7 @@ class ServingEngine:
                 setattr(self, key, overrides.pop(key))
         if overrides:
             raise TypeError(f"unknown reset overrides: {sorted(overrides)}")
-        self.cache = self._keep_cache(init_cache(
-            self.cfg, self.max_slots, self.max_len, device=self.device))
+        self.cache = self._empty_cache()
         self.slots: List[Optional[Request]] = [None] * self.max_slots
         self.pending: deque[Request] = deque()
         self.requests: Dict[int, Request] = {}
@@ -303,10 +312,12 @@ class ServingEngine:
         logits, single = self._prefill(
             self.params,
             self._batchify({"tokens": torch.from_numpy(toks).to(self.device)}))
-        cache = cache_insert(self._whole_cache(), single, slot)
-        if pad_n and "kv_pos" in cache:
-            cache["kv_pos"][slot, :pad_n] = -1
-        self.cache = self._keep_cache(cache)
+        specs = None if self.ctx is None else (
+            cache_layout(self.cfg, self.ctx, self.max_slots,
+                         self.max_len)[1],
+            cache_layout(self.cfg, self.ctx, 1, self.max_len, pl)[1])
+        cache_insert(local_tree(self.cache), single, slot, pad=pad_n,
+                     ctx=self.ctx, specs=specs)
         self.slots[slot] = req
         first = int(torch.argmax(logits[0]))
         req.out_tokens.append(first)
@@ -315,12 +326,23 @@ class ServingEngine:
         if len(req.out_tokens) >= req.max_new_tokens:
             self._retire(slot)
 
-    def _whole_cache(self) -> dict:
-        return self.cache if self._cache_sh is None else whole_tree(self.cache)
+    def _empty_cache(self) -> dict:
+        """A fresh cache; under a context, DTensors over local zeros, no
+        whole tensor made."""
+        if self.ctx is None:
+            return init_cache(self.cfg, self.max_slots, self.max_len,
+                              device=self.device)
 
-    def _keep_cache(self, cache: dict) -> dict:
-        return cache if self._cache_sh is None else place(cache,
-                                                          self._cache_sh)
+        def local(sh, t):
+            # init_cache's values: -1 in kv_pos and win_pos (its int32
+            # leaves of more than one dim), 0 elsewhere
+            idx = sh.local_index(tuple(t.shape), sh.mesh.coordinate())
+            return torch.full([s.stop - s.start for s in idx],
+                              -1 if t.dtype == torch.int32 and t.dim() > 1
+                              else 0, dtype=t.dtype, device=self.device)
+        return from_local_tree(
+            map_specs(local, self._cache_sh, self._cache_shape),
+            self._cache_sh, self._cache_shape)
 
     def _decode_step(self) -> None:
         """One batched decode step over all occupied slots."""
@@ -328,11 +350,20 @@ class ServingEngine:
         for i, s in enumerate(self.slots):
             if s is not None:
                 toks[i] = s.out_tokens[-1] % self.cfg.vocab_size
-        logits, cache = self._decode(
-            self.params, self._whole_cache(),
-            torch.from_numpy(toks).to(self.device))
-        self.cache = self._keep_cache(cache)
-        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        toks = torch.from_numpy(toks).to(self.device)
+        if self.ctx is None:
+            logits, self.cache = self._decode(self.params, self.cache, toks)
+            nxt = torch.argmax(logits, dim=-1)
+        else:
+            logits, cache = self._decode(self.params,
+                                         local_tree(self.cache), toks)
+            self.cache = from_local_tree(cache, self._cache_sh,
+                                         self._cache_shape)
+            # this rank's rows' tokens, then the (B,) ids of all rows
+            nxt = torch.argmax(logits, dim=-1)
+            if logits.shape[0] < self.max_slots:
+                nxt = comm.gather_data(nxt, self.ctx)
+        nxt = nxt.cpu().numpy()
         for i, s in enumerate(self.slots):
             if s is None:
                 continue

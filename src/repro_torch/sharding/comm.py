@@ -19,6 +19,8 @@ gradient of what it holds:
   * ``gather_data``: all-gather along a dim over the data group; backward
     sums over the data group and keeps this rank's chunk (each data rank's
     loss is its share of the global one).
+  * ``max_model`` / ``sum_model`` (outside autograd): the combine of
+    context-parallel decode attention over the model group.
 
 A group of one rank costs nothing.  Where a group's backend is gloo and the
 tensor is on a CUDA device, the bytes go through host memory (gloo reduces
@@ -39,18 +41,20 @@ def _staged(t: torch.Tensor, group) -> bool:
     return t.is_cuda and dist.get_backend(group) == "gloo"
 
 
-def all_reduce(t: torch.Tensor, group, size: int) -> torch.Tensor:
-    """Sum of ``t`` over ``group`` (a new tensor; ``t`` is not written)."""
+def all_reduce(t: torch.Tensor, group, size: int,
+               op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Sum (or ``op``) of ``t`` over ``group`` (a new tensor; ``t`` is not
+    written)."""
     if size == 1:
         return t
     if _staged(t, group):
         HOST_STAGED["calls"] += 1
         HOST_STAGED["bytes"] += t.numel() * t.element_size()
         h = t.detach().to("cpu", copy=True).contiguous()
-        dist.all_reduce(h, group=group)
+        dist.all_reduce(h, op=op, group=group)
         return h.to(t.device)
     out = t.detach().clone().contiguous()
-    dist.all_reduce(out, group=group)
+    dist.all_reduce(out, op=op, group=group)
     return out
 
 
@@ -187,6 +191,24 @@ def sum_data(x: torch.Tensor, sctx) -> torch.Tensor:
     """Sum over the data group, outside autograd (metrics, counts)."""
     g, _ = sctx.data_group if sctx.dsize > 1 else (None, None)
     return all_reduce(x.detach(), g, sctx.dsize)
+
+
+def max_model(x: torch.Tensor, sctx) -> torch.Tensor:
+    """Elementwise max over the model group, outside autograd."""
+    g, _ = sctx.model_group if sctx.msize > 1 else (None, None)
+    return all_reduce(x.detach(), g, sctx.msize, dist.ReduceOp.MAX)
+
+
+def sum_model(*xs: torch.Tensor, sctx) -> tuple:
+    """Sums of ``xs`` over the model group in one collective, outside
+    autograd."""
+    if sctx.msize == 1:
+        return xs
+    g, _ = sctx.model_group
+    flat = all_reduce(torch.cat([x.detach().reshape(-1) for x in xs]), g,
+                      sctx.msize)
+    return tuple(p.view_as(x) for p, x in
+                 zip(flat.split([x.numel() for x in xs]), xs))
 
 
 def from_data_rank0(x: torch.Tensor, sctx) -> torch.Tensor:

@@ -19,7 +19,9 @@ tuple of axis names, or None).  ``to_shardings`` turns specs into
 a tuple entry such as ``("pod", "data")`` sharding its tensor dim over
 both mesh dims, major to minor, as the reference's ``NamedSharding`` does.
 ``place`` / ``whole`` move a tree between whole tensors (the same on every
-rank) and DTensors in those layouts with no communication but the gather.
+rank) and DTensors in those layouts with no communication but the gather;
+``local_tree`` / ``from_local_tree`` between DTensors and their local
+shards, with none.
 
 The fabric layouts (multi-device co-verification, ``core/fabric.py``) are
 at the end.
@@ -345,6 +347,27 @@ def place(tree: Any, shardings: Any) -> Any:
         d = sh.place(t.detach())
         return d.requires_grad_() if t.requires_grad else d
     return map_specs(lambda sh, t: one(t, sh), shardings, tree)
+
+
+def local_tree(tree: Any) -> Any:
+    """Each DTensor leaf's local tensor (a view: writes reach the
+    DTensor); plain tensors pass through."""
+    from repro_torch._tree import paths, unflatten
+    return unflatten(tree, [t.to_local() if _is_dtensor(t) else t
+                            for _, t in paths(tree)])
+
+
+def from_local_tree(tree: Any, shardings: Any, like: Any) -> Any:
+    """Each leaf of ``tree`` (this rank's shard) as a DTensor of its
+    sharding, of the shape and strides of the matching leaf of ``like``
+    (the whole tree, e.g. on meta); no communication."""
+    from torch.distributed.tensor import DTensor
+
+    def one(sh, t, w):
+        return DTensor.from_local(t, sh.mesh.device_mesh, sh.placements,
+                                  run_check=False, shape=w.shape,
+                                  stride=w.stride())
+    return map_specs(one, shardings, tree, like)
 
 
 def whole(t):

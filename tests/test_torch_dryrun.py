@@ -9,10 +9,11 @@ cell by its rule (with its own ``train_state_bytes_per_device``).  Held:
   * ``model_flops`` for every arch x shape and the 31 cells (exact);
   * the ZeRO level and microbatch count of every train cell on both
     production meshes (exact);
-  * one production-size cell through ``main`` in a subprocess
-    (llama3.2-1b / decode_32k / 16 x 16): the reference's record keys,
-    ``argument_size_in_bytes`` equal to rank 0's local shard bytes by the
-    port's specs, nonzero FLOPs;
+  * two production-size cells through ``main``, each in a subprocess
+    (llama3.2-1b / decode_32k and prefill_32k / 16 x 16): the reference's
+    record keys, ``argument_size_in_bytes`` equal to rank 0's local shard
+    bytes by the port's specs, nonzero FLOPs, and argument + temp within
+    one H100's 80 GB;
   * a smoke train cell on a 2 x 2 fake mesh moves collective bytes, and
     its record is the same with and without the counter's reuse of
     output shapes;
@@ -151,23 +152,39 @@ def _reference_record_keys():
     raise AssertionError("no rec = {...} in the reference's run_cell")
 
 
-def test_production_decode_cell_record():
-    """llama3.2-1b / decode_32k on the 16 x 16 mesh through ``main`` in a
+def _production_record(shape: str, timeout: int) -> dict:
+    """llama3.2-1b / ``shape`` on the 16 x 16 mesh through ``main`` in a
     process of its own (a fake group of 256 ranks)."""
     with tempfile.TemporaryDirectory() as d:
         code = ("import sys\nfrom pathlib import Path\n"
                 "from repro_torch.launch import dryrun\n"
                 "dryrun.ART_DIR = Path(sys.argv[1])\n"
                 "sys.exit(dryrun.main(['--arch', 'llama3.2-1b', '--shape', "
-                "'decode_32k', '--tag', 'test']))\n")
+                f"'{shape}', '--tag', 'test']))\n")
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
         out = subprocess.run([sys.executable, "-c", code, d], env=env,
                              cwd=ROOT, capture_output=True, text=True,
-                             timeout=300)
+                             timeout=timeout)
         assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
         assert "1 OK, 0 FAIL" in out.stdout
-        rec = json.loads((Path(d) / "llama3.2-1b__decode_32k__1pod__test"
-                          ".json").read_text())
+        return json.loads((Path(d) / f"llama3.2-1b__{shape}__1pod__test"
+                           ".json").read_text())
+
+
+def _rank_bytes(rec) -> int:
+    """What the artifacts check reads: argument + temp - artifact."""
+    ma = rec["memory_analysis"]
+    return ma["argument_size_in_bytes"] + ma["temp_size_in_bytes"] - \
+        ma["cpu_f32_convert_artifact_bytes"]
+
+
+def test_production_decode_cell_record():
+    """llama3.2-1b / decode_32k on the 16 x 16 mesh through ``main`` in a
+    process of its own (a fake group of 256 ranks): the reference's record
+    keys, rank 0's argument bytes by the port's specs, and (since the
+    decode keeps to its shard of the cache) within one H100's 80 GB —
+    the step used to gather the whole cache on every rank: 280 GB."""
+    rec = _production_record("decode_32k", 300)
     top, nested = _reference_record_keys()
     assert list(rec) == top
     for k, keys in nested.items():
@@ -195,6 +212,20 @@ def test_production_decode_cell_record():
     assert rec["memory_analysis"]["argument_size_in_bytes"] == want
     assert rec["profile"]["hlo_flops_per_dev"] > 0
     assert rec["cost_analysis_raw"]["flops"] > 0
+    assert _rank_bytes(rec) < H100_HBM, _rank_bytes(rec) / 1e9
+
+
+def test_production_prefill_cell_record():
+    """llama3.2-1b / prefill_32k on the 16 x 16 mesh in a process of its
+    own: rank 0 computes its 2 of the 32 prompts with its heads and keeps
+    its shard of the cache, within one H100's 80 GB (every rank used to
+    compute the whole batch: 118 GB)."""
+    rec = _production_record("prefill_32k", 900)
+    assert (rec["mesh"], rec["world"], rec["kind"]) == ("16x16", 256,
+                                                       "prefill")
+    assert rec["profile"]["hlo_flops_per_dev"] > 0
+    assert rec["profile"]["collective_bytes_per_dev"] > 0
+    assert _rank_bytes(rec) < H100_HBM, _rank_bytes(rec) / 1e9
 
 
 def _smoke_train(reuse: bool = True) -> dict:

@@ -280,3 +280,30 @@ def test_meta_run_counts_as_real_run():
         runs.append((c.flops, c.traffic_bytes, c.dot_count,
                      [(op, sh) for op, sh, _, _ in c.ops]))
     assert runs[0] == runs[1] == runs[2]
+
+
+def test_peak_by_site_splits_the_peak():
+    """``peak_sites``: the live bytes at the peak split by where each
+    storage was made (the tracked arguments apart) sum to the peak within
+    the 1 MiB the split may lag it, and name the function that made the
+    largest tensor; without it the peak is the same."""
+    def big(x):
+        return torch.cat([x] * 16)                 # 16 x 256 KiB
+
+    def program(x):
+        y = big(x)[:1024].exp()                    # 1 MiB
+        return y.sum()
+
+    x = torch.randn(256, 256, device="meta")
+    peaks = []
+    for sites in (False, True):
+        with hp.ProgramCounter(peak_sites=sites) as c:
+            held = c.track(x)
+            program(x)
+        peaks.append(c.peak_bytes)
+    assert peaks[0] == peaks[1] > held
+    split = c.peak_by_site
+    assert split["arguments"] == held
+    assert abs(sum(split.values()) - c.peak_bytes) <= 1 << 20
+    assert max(split, key=split.get).endswith(
+        "test_torch_hlo_profiler.py:big")

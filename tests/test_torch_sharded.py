@@ -289,47 +289,158 @@ def test_trainer_rescale_and_restore_with_shardings(tmp_path):
 # ---------------------------------------------------------------------------
 
 
-def _serve(cfg, params, flags, ctx, prompts):
+SERVE_CASES = [("llama3.2-1b", "pjit"), ("moonshot-v1-16b-a3b", "pjit"),
+               ("zamba2-2.7b", "pjit"), ("llama-3.2-vision-11b", "pjit"),
+               ("rwkv6-7b", "pjit")]
+
+
+def _local_shapes(shardings, like) -> dict:
+    """{leaf path: this rank's shard shape} of the whole tree ``like`` by
+    its shardings."""
+    out = {}
+    for (p, t), (_, sh) in zip(paths(like), _sharding_paths(shardings)):
+        idx = sh.local_index(tuple(t.shape), sh.mesh.coordinate())
+        out[p] = tuple(s.stop - s.start for s in idx)
+    return out
+
+
+def _sharding_paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _sharding_paths(v, f"{prefix}{k}/")
+    elif isinstance(tree, tuple):
+        for i, v in enumerate(tree):
+            yield from _sharding_paths(v, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def _shapes_of(tree) -> dict:
+    return {p: tuple(getattr(t, "to_local", lambda: t)().shape)
+            for p, t in paths(tree)}
+
+
+def _serve(cfg, params, flags, ctx, prompts, max_len=64):
+    """Serves ``prompts`` (5 new tokens each) -> (tokens, the logits each
+    token was taken from, the engine); under ``ctx`` each prefill's shard
+    and, after every tick, each cache leaf's local shape are held to
+    ``cache_specs``' local shapes."""
     from repro_torch.serving.engine import Request, ServingEngine
-    eng = ServingEngine(cfg, params, max_slots=4, max_len=64, flags=flags,
-                        ctx=ctx, device="cpu")
+    from repro_torch.sharding.specs import to_shardings
+    eng = ServingEngine(cfg, params, max_slots=4, max_len=max_len,
+                        flags=flags, ctx=ctx, device="cpu")
+    logits_of = {i: [] for i in range(len(prompts))}
+    prefill, decode, admit = eng._prefill, eng._decode, eng._prefill_admit
+    seen = {}
+
+    def checked(p, batch):
+        logits, single = prefill(p, batch)
+        seen["prefill"] = logits[0]
+        if ctx is not None:
+            S = batch["tokens"].shape[1]
+            shape, specs = tf.cache_layout(cfg, ctx, 1, max_len, S)
+            assert _shapes_of(single) == _local_shapes(
+                to_shardings(specs, ctx.mesh), shape), S
+        return logits, single
+
+    def logged_admit(slot, req):
+        admit(slot, req)
+        logits_of[req.rid].append(seen["prefill"])
+
+    def logged_decode(p, cache, toks):
+        # this rank's rows of the slots (all of them where rows are whole)
+        logits, cache = decode(p, cache, toks)
+        lo = 0 if logits.shape[0] == eng.max_slots else \
+            ctx.data_rank * logits.shape[0]
+        for i, r in enumerate(eng.slots):
+            if r is not None and lo <= i < lo + logits.shape[0]:
+                logits_of[r.rid].append(logits[i - lo])
+        return logits, cache
+    eng._prefill, eng._decode = checked, logged_decode
+    eng._prefill_admit = logged_admit
+    if ctx is not None:
+        want = _local_shapes(eng._cache_sh, eng._cache_shape)
     for i, p in enumerate(prompts):
         eng.submit(Request(i, p, 5))
-    eng.run_until_done()
-    return {r.rid: list(r.out_tokens) for r in eng.requests.values()}, eng
+    while eng.pending or eng._n_active():
+        eng.step()
+        if ctx is not None:
+            assert _shapes_of(eng.cache) == want
+            assert all(type(t).__name__ == "DTensor"
+                       for _, t in paths(eng.cache))
+    return ({r.rid: list(r.out_tokens) for r in eng.requests.values()},
+            logits_of, eng)
 
 
-def _rank_serving():
+def _serve_case(arch, mode):
+    """(cfg, params, flags) of a serving case (the vlm with its gates
+    open)."""
+    cfg = smoke(get_config(arch))
+    params = tf.init_params(cfg, torch.Generator().manual_seed(11))
+    if cfg.family == "vlm":
+        for g in ("gate", "gate_mlp"):
+            params["blocks"]["cross"][g] = torch.full_like(
+                params["blocks"]["cross"][g], 0.5)
+    return cfg, params, RunFlags(compute_dtype="float32", moe_mode=mode)
+
+
+def _rank_serving(mshape, cases):
+    ctx = make_ctx(make_test_mesh(mshape).bind("cpu"))
+    for (arch, mode), prompts, want, want_logits in cases:
+        cfg, params, flags = _serve_case(arch, mode)
+        got, got_logits, eng = _serve(cfg, params, flags, ctx, prompts)
+        assert got == want, (arch, mode, mshape)
+        # every logits row this rank computed (the prefill's, and the
+        # decode steps' where the request's slot is on this data shard),
+        # against the unsharded one that gave the same token: within
+        # 2^-5 x max|logit|.  The cache is bf16 and decode attention
+        # rounds its weights to the cache's type: the split rounds each
+        # slice's unnormalised weights, the whole path the normalised ones
+        # (at most 0.0050 x max|logit| over these cases; 0 for rwkv6)
+        for rid, rows in got_logits.items():
+            assert len(rows) in (1, len(want[rid])), (rid, len(rows))
+            for j, row in enumerate(rows):
+                ref = want_logits[rid][j]
+                err = float((row - ref).abs().max() / ref.abs().max())
+                assert err <= 2.0 ** -5, (arch, mode, mshape, rid, j, err)
+        if "k" in eng.cache:
+            dsize, msize = ctx.mesh.shape
+            assert eng.cache["k"].to_local().shape[1:3] == (4 // dsize,
+                                                            64 // msize)
+
+
+@pytest.mark.parametrize("mshape", [(2, 2), (1, 4)])
+def test_serving_engine_with_a_context_gives_the_same_tokens(tmp_path,
+                                                            mshape):
+    """4 gloo ranks: ``ServingEngine(ctx=...)`` (parameters placed by
+    ``prefill_shardings``, the cache as DTensors in ``decode_shardings``'
+    layout) serves five requests with the tokens of the engine without a
+    context, on mesh (2, 2) (rows and positions split) and (1, 4)
+    (positions split four ways): smoke llama3.2-1b, moonshot (the pjit
+    layer, its experts split), zamba2, the vlm (gates open) and rwkv6;
+    and on (1, 4) moonshot's expert-parallel layer.  Each prefill's shard
+    and, after every tick, each cache leaf hold ``cache_specs``' local
+    shapes.  The checks changed with the layout: the engine used to hold
+    the whole cache for each step, and the test read only the k leaf's
+    shape.  On a data axis of two the expert-parallel layer sizes each
+    data shard's capacity from its own tokens, as the reference's does,
+    so its drops are not the global layer's (held against the reference
+    in ``tests/test_torch_ep.py``).  The engine without a context runs once,
+    in this process; each rank holds its tokens, and every logits row it
+    computed to the unsharded row of the same token within 2^-5 x
+    max|logit| (fp32 compute over the bf16 cache)."""
     rng = np.random.default_rng(7)
-    ctx22 = make_ctx(make_test_mesh((2, 2)).bind("cpu"))
-    ctx14 = make_ctx(make_test_mesh((1, 4)).bind("cpu"))
-    for arch, mode, ctx in (("llama3.2-1b", "pjit", ctx22),
-                            ("moonshot-v1-16b-a3b", "pjit", ctx22),
-                            ("moonshot-v1-16b-a3b", "ep_shardmap", ctx14)):
-        cfg = smoke(get_config(arch))
-        params = tf.init_params(cfg, torch.Generator().manual_seed(11))
+    cases = []
+    for arch, mode in SERVE_CASES + (
+            [("moonshot-v1-16b-a3b", "ep_shardmap")] if mshape == (1, 4)
+            else []):
+        cfg, params, flags = _serve_case(arch, mode)
         prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                    for n in (5, 16, 9, 20, 3)]
-        flags = RunFlags(compute_dtype="float32", moe_mode=mode)
-        want, _ = _serve(cfg, params, flags, None, prompts)
-        got, eng = _serve(cfg, params, flags, ctx, prompts)
-        assert got == want, (arch, mode)
-        k = eng.cache["k"]
-        assert type(k).__name__ == "DTensor"
-        dsize, msize = ctx.mesh.shape
-        assert k.to_local().shape[1:3] == (4 // dsize, 64 // msize)
-
-
-def test_serving_engine_with_a_context_gives_the_same_tokens(tmp_path):
-    """4 gloo ranks: ``ServingEngine(ctx=...)`` (parameters placed by
-    ``prefill_shardings``, the cache by ``decode_shardings``) serves five
-    requests with the tokens of the engine without a context: smoke
-    llama3.2-1b and smoke moonshot on (2, 2), and moonshot's
-    expert-parallel layer on (1, 4).  On a data axis of two that layer
-    sizes each data shard's capacity from its own tokens, as the
-    reference's does, so its drops are not the global layer's (held
-    against the reference in ``tests/test_torch_ep.py``)."""
-    _spawn(tmp_path, 4, _rank_serving)
+        # the engine without a context, once, here
+        cases.append(((arch, mode), prompts,
+                      *_serve(cfg, params, flags, None, prompts)[:2]))
+    _spawn(tmp_path, 4, _rank_serving, mshape, cases)
 
 
 # ---------------------------------------------------------------------------
