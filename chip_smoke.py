@@ -27,8 +27,9 @@ card, and drives the port's paths:
     ring-routed rerun with the same result and another timing, a
     same-seed rerun with the same digest;
   * sweep — ``CoVerifySession`` with four worker threads on the one card:
-    the fabric cells at 1, 2 and 4 modeled devices and a 4-device ring,
-    three backends, a fault plan (24 cells; EQUIVALENT, the same modeled
+    the fabric cells (the matmul at 2048) at 1, 2 and 4 modeled devices
+    and a 4-device ring, three backends, a fault plan (24 cells;
+    EQUIVALENT, the same modeled
     rows at 4 workers and at 1, 2/4-device results bit-identical to 1
     device), the Fig. 5 batched lane against sequential ``coverify()``
     calls, the matmul cells again at 512 with the data-movement profiler
@@ -112,7 +113,17 @@ card, and drives the port's paths:
     the unsharded top-2 logit gap is under ``TOKEN_GAP_TOL``, 16 x 8
     attention launches a rank on its local heads, every cache leaf at its
     ``cache_specs`` local shape after every tick, half the cache's bytes
-    a rank;
+    a rank; then the same two ranks, on mesh (1, 2), run rwkv6-7b and
+    zamba2-2.7b at ``train_ssm``'s depths (full width) on each rank's
+    heads: two fp32 train steps from the unsharded steps' state and
+    batches (each step's loss and grad norm within ``SSM_TWO_RANK_RTOL``,
+    each leaf's norm of both moments after the first step within
+    ``SSM_LEAF_RTOL``, the same B5 / B6 / B2-B4 launches a rank as the
+    unsharded steps), one 1536-token request served through
+    ``ServingEngine(ctx)`` with 8 teacher-forced decode steps (logits
+    within ``LOGIT_TOL``, the ``TOKEN_GAP_TOL`` tie rule), half the cache's
+    and of the split weights' bytes a rank, and the weights' compute form
+    no larger than the rank's stored shard;
   * dryrun — the dry run (``launch/dryrun.py``, ``core/hlo_profiler.py``)
     against the card: llama3.2-1b's train step at train_llama's batch with
     the dry run's flags (``chunked``, one microbatch, remat) counted by
@@ -143,6 +154,7 @@ import dataclasses
 import gc
 import hashlib
 import json
+import math
 import os
 import re
 import shutil
@@ -165,7 +177,7 @@ from benchmarks.bench_debug_iteration_torch import (
     CASES as FIG5_CASES, SWEEP_SIZES as FIG5_SWEEP_SIZES)
 from repro_torch import goldens
 from repro_torch._device import true_fp32
-from repro_torch._tree import leaves, tree_map
+from repro_torch._tree import leaves, paths, tree_map
 from repro_torch.configs import ShapeConfig, get_config, smoke
 from repro_torch.core import (FABRIC_LINK, CATEGORIES, CongestionConfig,
                               CoVerifySession, DataMovementProfiler,
@@ -366,9 +378,11 @@ def phase_build() -> None:
 # the fp32 body (K no multiple of 8, M and N no multiple of its C tile), and
 # a longer K, where the tensor core's accumulation error shows most; then
 # the fuzzer's bridge-layer launches (32, 48, 64 cubed at tile 16), one
-# device's row shard of the 4-device and of the 2-device matmul fabric
-# cells, the Fig. 5 batched lane's cells (64-160 cubed at tile 32), and the
-# run-farm campaign's 1024 sweep unit.
+# device's row shard of the 4-device matmul fabric cell, the Fig. 5
+# batched lane's cells (64-160 cubed at tile 32), the
+# run-farm campaign's 1024 sweep unit, one device's launch of the
+# devices sweep's 1-, 2- and 4-device matmul cells (2048), and one
+# device's launch of the 2-device matmul fabric cell.
 MM_SHAPES = [
     (256, 128, 128, 64, torch.float32),
     (128, 256, 512, 64, torch.bfloat16),
@@ -382,21 +396,26 @@ MM_SHAPES = [
     (48, 48, 48, 16, torch.float32),
     (64, 64, 64, 16, torch.float32),
     (1024, 4096, 4096, 128, torch.float32),
-    (2048, 4096, 4096, 128, torch.float32),
     (64, 64, 64, 32, torch.float32),
     (96, 96, 96, 32, torch.float32),
     (128, 128, 128, 32, torch.float32),
     (160, 160, 160, 32, torch.float32),
     (1024, 1024, 1024, 32, torch.float32),
+    (2048, 2048, 2048, 128, torch.float32),
+    (1024, 2048, 2048, 128, torch.float32),
+    (512, 2048, 2048, 128, torch.float32),
+    (2048, 4096, 4096, 128, torch.float32),
 ]
 MM_MAIN = 4          # index of the shape coverify_matmul runs
 MM_FUZZ = (8, 9, 10)  # the fuzzer's bridge-layer launches
 MM_SHARD = 11        # one device's launch of the 4-device matmul fabric cell
-MM_SHARD2 = 12       # one device's launch of the 2-device sweep cell
-MM_FIG5_SWEEP = (13, 14, 15, 16)   # the Fig. 5 batched lane's cells
+MM_FIG5_SWEEP = (12, 13, 14, 15)   # the Fig. 5 batched lane's cells
 # the campaign's 1024 sweep unit (a sweep unit's table passes tile 32 at
 # every size; the kernel's own tiling ignores it, the plain version not)
-MM_CAMPAIGN = 17
+MM_CAMPAIGN = 16
+# one device's launch of the devices sweep's 1-, 2- and 4-device cells
+MM_DEVICES_SWEEP = (17, 18, 19)
+MM_SHARD2 = 20       # one device's launch of the 2-device matmul fabric cell
 # the fp32 body keeps 3xTF32 only while every fp32 row is within half its
 # gate (the rule that chose hi + lo for the attention backward)
 SPLIT_RULE = 0.5
@@ -808,17 +827,21 @@ def check_flash_bwd(shape):
 # then the shapes one served prefill gives the kernels: rwkv6-7b (H=64,
 # K=64) and zamba2-2.7b (H=80, P=N=64, chunk 128; x in bf16 as served, and
 # in fp32) at a 1536-token prompt; for rwkv6-7b also the shortest served
-# prompt (256) and train_ssm's sequence (1024).
+# prompt (256) and train_ssm's sequence (1024); then each model's heads on
+# one of two model ranks (phase sharded: H = 32 of 64, 40 of 80).
 WKV_SHAPES = [(2, 64, 4, 16), (1, 32, 8, 32), (1, 1536, 64, 64),  # B,L,H,K
-              (1, 256, 64, 64), (1, 1024, 64, 64)]
+              (1, 256, 64, 64), (1, 1024, 64, 64), (1, 1536, 32, 64)]
 WKV_MAIN = 2
+WKV_LOCAL = 5        # rwkv6-7b's heads on one of two model ranks (sharded)
 SSD_SHAPES = [  # B, L, H, P, N, chunk, x/B/C dtype
     (2, 64, 8, 16, 8, 16, torch.float32),
     (1, 128, 4, 8, 16, 32, torch.float32),
     (1, 1536, 80, 64, 64, 128, torch.bfloat16),
     (1, 1536, 80, 64, 64, 128, torch.float32),
+    (1, 1536, 40, 64, 64, 128, torch.bfloat16),
 ]
 SSD_MAIN = 2
+SSD_LOCAL = 4        # zamba2-2.7b's heads on one of two model ranks
 # the reference's 1e-3, times max(1, max|plain|) as for the gradients
 SCAN_TOL = 1e-3
 
@@ -1314,7 +1337,8 @@ def fabric_run(cell: str, table: dict, n: int, backend: str,
 def phase_fabric(card: str) -> dict:
     """The two fabric firmwares at full size on 4 modeled devices, all
     modeled on this one card: the three backends EQUIVALENT; the 4-device
-    ``interpret`` result bit-identical to the 1-device one; a ring-routed
+    ``interpret`` result bit-identical to the 1- and the 2-device one; a
+    ring-routed
     rerun with the same host result and another fabric timing; a
     same-seed rerun with the same digest.  Returns each kernel's launches
     in the phase."""
@@ -1350,6 +1374,7 @@ def phase_fabric(card: str) -> dict:
         runs = {be: fabric_run(cell, table, FABRIC_DEVICES, be)
                 for be in ("oracle", "interpret", "compiled")}
         one = fabric_run(cell, table, 1, "interpret")
+        two = fabric_run(cell, table, 2, "interpret")
         ring = fabric_run(cell, table, FABRIC_DEVICES, "interpret",
                           topology="ring")
         again = fabric_run(cell, table, FABRIC_DEVICES, "interpret")
@@ -1360,6 +1385,8 @@ def phase_fabric(card: str) -> dict:
             "equivalence": str(eq), "passed": eq.passed,
             "bit_identical_to_1dev": bool(np.array_equal(
                 got, one["outputs"][oname])),
+            "bit_identical_to_2dev": bool(np.array_equal(
+                got, two["outputs"][oname])),
             "ring_same_result": bool(np.array_equal(
                 got, ring["outputs"][oname])),
             "ring_other_timing": ring["time"] != runs["interpret"]["time"],
@@ -1375,6 +1402,7 @@ def phase_fabric(card: str) -> dict:
                       for name, r in [*((f"{be}@{FABRIC_DEVICES}dev", r)
                                         for be, r in runs.items()),
                                       ("interpret@1dev", one),
+                                      ("interpret@2dev", two),
                                       (f"interpret@{FABRIC_DEVICES}dev_ring",
                                        ring),
                                       (f"interpret@{FABRIC_DEVICES}dev_rerun",
@@ -1383,7 +1411,7 @@ def phase_fabric(card: str) -> dict:
         if not all(v for k, v in checks.items() if k != "equivalence"):
             emit(out)
             fail(f"fabric {cell}: {checks}")
-        del runs, one, ring, again
+        del runs, one, two, ring, again
     launches = {"systolic_matmul": MMK.launches, "flash_fwd": FAK.launches}
     out["launches"] = launches
     out["compiled_graphs"] = compiled_graphs() - graphs0
@@ -1414,6 +1442,18 @@ TRACE_DIR = ROOT / "build" / "sweep_traces"
 # files took 117 s to write and read back on a slow machine (three 270 MB
 # ring files), time the sharded phase's two-rank serving needs
 TRACE_CELLS = {"mm": dict(size=512, tile=128)}
+# the devices sweep (phase sweep (a)) runs its matmul cells at 2048: at
+# 4096 its two passes took 320.6 s of a 1208.9 s script, over the 1200 s
+# limit, on an NVIDIA H100 80GB HBM3 (700 W) whose host ran every phase
+# 1.3-1.5x slower than most.  Both passes at 4096 would still read about
+# 1177 s on that host with the split ssm run in the llama ranks' spawn,
+# and only the 1-worker pass at 2048 (rows compared at 2048, a third pass)
+# about 1140 s: neither leaves room for a slower host; at 2048 about 960.
+# The 4096 matmul stays at 1, 2 and 4 devices in the fabric phase (bit
+# for bit across them) and in phase 3's rows; the planted bug (d) and the
+# replay and profile phases keep SWEEP_CELLS' 4096
+DEVICES_SWEEP_CELLS = {"mm": dict(size=2048, tile=128),
+                       "fa": SWEEP_CELLS["fa"]}
 
 
 def sweep_firmware(fb, op, backend, **cfg):
@@ -1492,8 +1532,9 @@ def closes(prof) -> bool:
 
 
 def phase_sweep(card: str) -> dict:
-    """``CoVerifySession`` on the card: (a) the 24-cell full-size devices
-    sweep at 4 workers with ``profile=True``, then at 1 without (both pass;
+    """``CoVerifySession`` on the card: (a) the 24-cell devices sweep
+    (``DEVICES_SWEEP_CELLS``) at 4 workers with ``profile=True``, then at 1
+    without (both pass;
     the rows, the profile columns left out, byte-identical; 2/4-device
     ``interpret`` bit-identical to 1 device; no counter mismatch; every
     profiled cell's attribution closes); (b) the Fig. 5 batched lane
@@ -1508,7 +1549,7 @@ def phase_sweep(card: str) -> dict:
               "fa": flash_backends(bq=SWEEP_CELLS["fa"]["bq"],
                                    bk=SWEEP_CELLS["fa"]["bk"], causal=True,
                                    device="cuda")}
-    tier_s = build_sweep_tier(tables)
+    tier_s = build_sweep_tier(tables, DEVICES_SWEEP_CELLS)
     MMK.launches = 0
     FAK.launches = 0
     out = {"phase": "sweep", "card": card, "compiled_build_s": tier_s}
@@ -1518,7 +1559,8 @@ def phase_sweep(card: str) -> dict:
     # the same modeled quantities
     runs = {}
     for workers in (SWEEP_WORKERS, 1):
-        sess = sweep_session(tables, profile=workers > 1)
+        sess = sweep_session(tables, profile=workers > 1,
+                             cells=DEVICES_SWEEP_CELLS)
         mm0, fa0 = MMK.launches, FAK.launches
         t = time.perf_counter()
         rep = sess.run(max_workers=workers)
@@ -3667,19 +3709,19 @@ def _serve_logged(eng, reqs, forced=None) -> dict:
     return out
 
 
-def _cache_bytes(cache) -> dict:
-    """Bytes of the leaves the layout splits, whole and on this rank, and
-    of the replicated ``pos``."""
+def _cache_bytes(tree) -> dict:
+    """Bytes of the leaves of ``tree`` (a cache or the weights) that the
+    layout splits, whole and on this rank, and of the replicated ones (a
+    cache's ``pos``; every leaf of a tree of plain tensors)."""
     out = {"split_whole": 0, "split_local": 0, "replicated": 0}
-    for name, t in cache.items():
-        for d in (t if isinstance(t, tuple) else (t,)):
-            loc = d.to_local()
-            nb = loc.numel() * loc.element_size()
-            if tuple(loc.shape) == tuple(d.shape):
-                out["replicated"] += nb
-            else:
-                out["split_local"] += nb
-                out["split_whole"] += d.numel() * loc.element_size()
+    for d in leaves(tree):
+        loc = d.to_local() if hasattr(d, "to_local") else d
+        nb = loc.numel() * loc.element_size()
+        if tuple(loc.shape) == tuple(d.shape):
+            out["replicated"] += nb
+        else:
+            out["split_local"] += nb
+            out["split_whole"] += d.numel() * loc.element_size()
     return out
 
 
@@ -3687,7 +3729,8 @@ def _two_rank_serve_worker(rank: int, store: str, result: str,
                            unsharded: str) -> None:
     """One of two ranks on cuda:0 (spawned): llama3.2-1b served through
     ``ServingEngine(ctx)`` on each mesh of ``TWO_RANK_MESHES``, fed the
-    tokens of the unsharded run saved in ``unsharded``."""
+    tokens of the unsharded run saved in ``unsharded``; then the split ssm
+    run on mesh (1, 2) (``_ssm_rows``)."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_ctx, make_test_mesh
     from repro_torch.sharding import comm
@@ -3736,7 +3779,15 @@ def _two_rank_serve_worker(rank: int, store: str, result: str,
                 "host_staged_bytes": comm.HOST_STAGED["bytes"]
                 - staged["bytes"]})
             del eng
-        Path(result).write_text(json.dumps(rows))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        ctx = make_ctx(make_test_mesh((1, 2)).bind("cuda"))
+        ssm, _ = _ssm_rows(ctx, want["ssm"])
+        Path(result).write_text(json.dumps(
+            {"llama": rows, "ssm": ssm,
+             "ssm_s": time.perf_counter() - t}))
     finally:
         dist.destroy_process_group()
 
@@ -3762,7 +3813,10 @@ def forced_summary(checks: dict) -> dict:
 
 def sharded_serve_two_ranks(card: str) -> dict:
     """llama3.2-1b served without a context here, then by two spawned
-    ranks on cuda:0 through ``ServingEngine(ctx)`` on (1, 2) and (2, 1)."""
+    ranks on cuda:0 through ``ServingEngine(ctx)`` on (1, 2) and (2, 1);
+    the same two ranks then run the split ssm configs
+    (``_ssm_rows``) against their unsharded run here, recorded under
+    ``"ssm"``."""
     import torch.multiprocessing as mp
     cfg = get_config(LLAMA["arch"])
     reqs = serve_requests(cfg)
@@ -3789,12 +3843,13 @@ def sharded_serve_two_ranks(card: str) -> dict:
     del eng, params
     gc.collect()
     torch.cuda.empty_cache()
+    ssm_whole, ssm_saved = _ssm_rows()
     work = Path(tempfile.mkdtemp(prefix="two_rank_serve_",
                                  dir=_build.BUILD_DIR))
     torch.save({"tokens": want, "logits": {
-        rid: torch.stack(rows) for rid, rows in logits.items()}},
-        work / "unsharded.pt")
-    del logits
+        rid: torch.stack(rows) for rid, rows in logits.items()},
+        "ssm": ssm_saved}, work / "unsharded.pt")
+    del logits, ssm_saved
     t = time.perf_counter()
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_two_rank_serve_worker,
@@ -3817,6 +3872,9 @@ def sharded_serve_two_ranks(card: str) -> dict:
                  f"{p.exitcode}")
         ranks.append(json.loads(f.read_text()))
     shutil.rmtree(work, ignore_errors=True)
+    ssm = _ssm_verdict(ssm_whole, [rk["ssm"] for rk in ranks],
+                       max(rk["ssm_s"] for rk in ranks))
+    ranks = [rk["llama"] for rk in ranks]
     want_launches = cfg.n_layers * len(reqs)
     runs, bad = [], []
     for i, shape in enumerate(TWO_RANK_MESHES):
@@ -3849,9 +3907,248 @@ def sharded_serve_two_ranks(card: str) -> dict:
            "teacher_forced": True, "logit_tol": LOGIT_TOL,
            "token_gap_tol": TOKEN_GAP_TOL, "unsharded": whole,
            "flash_fwd_per_rank_want": want_launches, "runs": runs,
-           "wall_s": time.perf_counter() - t}
+           "ssm": ssm, "wall_s": time.perf_counter() - t}
     if bad:
         fail(f"sharded two-rank serving {bad}: {out}")
+    return out
+
+
+# rwkv6-7b and zamba2-2.7b at train_ssm's depths (full width) on two ranks
+# of mesh (1, 2) sharing cuda:0 over gloo: their ssm layers on each rank's
+# heads (the WKV-6 / SSD scans see half of them), against the same state,
+# batches and request without a context.  SSM_TRAIN_STEPS fp32 train steps
+# (the comparison then sees the split, not bf16 rounding): each step's
+# loss and grad norm within SSM_TWO_RANK_RTOL, as the sharded llama steps
+# (the second step's loss reads the first update); after the first step,
+# each leaf's norm of both moments (its clipped gradient g: m = (1 - b1) g,
+# v = (1 - b2) g^2), summed over the ranks where the leaf is split, within
+# SSM_LEAF_RTOL of the unsharded leaf's (a leaf whose unsharded norm is
+# under 1e-3 of the largest leaf's is held to that floor).  One served
+# request of serve_requests' 1536 tokens, its prefill and
+# SSM_TWO_RANK_DECODE decode steps fed the unsharded engine's tokens, held
+# to LOGIT_TOL / TOKEN_GAP_TOL.
+SSM_TWO_RANK_RTOL = 1e-5
+SSM_LEAF_RTOL = 1e-4
+SSM_TRAIN_STEPS = 2
+SSM_TWO_RANK_DECODE = 8
+
+
+def _ssm_two_rank_cfg(arch: str):
+    return dataclasses.replace(get_config(arch), **TRAIN_SSM[arch])
+
+
+def _ssm_two_rank_inputs(cfg):
+    """(train state on cuda, its batches, the bf16 serving weights, the
+    one request) of ``cfg``, each drawn from its seed."""
+    dev = torch.device("cuda")
+    state = make_train_state(cfg, torch.Generator(device=dev).manual_seed(
+        TRAIN_SSM_SHAPE["seed"]))
+    data = SyntheticLMDataset(cfg.vocab_size, TRAIN_SSM_SHAPE["seq_len"],
+                              TRAIN_SSM_SHAPE["global_batch"],
+                              seed=TRAIN_SSM_SHAPE["seed"])
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in data.batch(i).items()}
+               for i in range(SSM_TRAIN_STEPS)]
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dtype=torch.bfloat16)
+    rid, prompt, _ = serve_requests(cfg)[0]
+    return state, batches, params, [(rid, prompt, SSM_TWO_RANK_DECODE + 1)]
+
+
+SSM_TRAIN_FLAGS = RunFlags(attn_impl="pallas", compute_dtype="float32")
+SSM_OPT = AdamWConfig(lr=1e-3, warmup_steps=20, total_steps=1)
+
+
+def _nbytes(ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _moment_sumsq(state: dict) -> dict:
+    """{"m/<leaf>" and "v/<leaf>": [the sum of squares of this rank's part
+    of the moment, whether that part is a split of the leaf]}."""
+    out = {}
+    for key in ("m", "v"):
+        for path, t in paths(state[key]):
+            loc = t.to_local() if hasattr(t, "to_local") else t
+            out[f"{key}/{path}"] = [float(loc.double().square().sum()),
+                                    tuple(loc.shape) != tuple(t.shape)]
+    return out
+
+
+def _ssm_rows(ctx=None, want: dict = None) -> tuple:
+    """For each config of ``TRAIN_SSM``: ``SSM_TRAIN_STEPS`` fp32 train
+    steps, then its request served; the scans' launches counted from 0
+    around each.  Without ``ctx``, on this process's card: (rows, {arch:
+    the tokens and logits rows of its request}).  With ``ctx`` (one rank
+    of ``_two_rank_serve_worker``, mesh (1, 2)): the state placed by the
+    context's layout and the request fed ``want``'s tokens; (rows,
+    None)."""
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.specs import place
+    opts = {k: SERVE[k] for k in ("max_slots", "max_len", "prompt_pad",
+                                  "batching")}
+    rows, saved = [], {}
+    for arch in TRAIN_SSM:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = _ssm_two_rank_cfg(arch)
+        state, batches, params, reqs = _ssm_two_rank_inputs(cfg)
+        gsh = None
+        if ctx is not None:
+            _, st_sh, _, _, gsh = steps_lib.train_shardings(
+                cfg, ShapeConfig("t", TRAIN_SSM_SHAPE["seq_len"],
+                                 TRAIN_SSM_SHAPE["global_batch"], "train"),
+                ctx.mesh, ctx)
+            state = place(state, st_sh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step_fn = make_train_step(cfg, SSM_TRAIN_FLAGS, ctx, SSM_OPT,
+                                  grad_shardings=gsh)
+        staged = dict(comm.HOST_STAGED)
+        WKVK.launches = SSDK.launches = 0
+        FAK.launches = FAK.dkdv_launches = FAK.dq_launches = 0
+        steps, moments = [], None
+        for batch in batches:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = step_fn(state, batch)
+            torch.cuda.synchronize()
+            steps.append({"step_s": time.perf_counter() - t,
+                          "loss": float(m["loss"]),
+                          "grad_norm": float(m["grad_norm"])})
+            if moments is None:
+                moments = _moment_sumsq(state)
+        train = {"steps": steps, "moments": moments,
+                 "launches": ssm_launches(),
+                 "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                 "host_staged_calls": comm.HOST_STAGED["calls"]
+                 - staged["calls"]}
+        del state, m, step_fn, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+        eng = ServingEngine(cfg, params, flags=SERVE_ARCHS[arch]["flags"],
+                            ctx=ctx, device="cuda", **opts)
+        with torch.no_grad():
+            form = tf._compute_params(cfg, eng.flags, tf.cast_params(
+                eng.params), ctx)
+        staged = dict(comm.HOST_STAGED)
+        WKVK.launches = SSDK.launches = 0
+        FAK.launches = FAK.dkdv_launches = FAK.dq_launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        checks = _serve_logged(eng, reqs, None if want is None else (
+            want[arch]["tokens"], want[arch]["logits"]))
+        torch.cuda.synchronize()
+        serve = {"serve_s": time.perf_counter() - t,
+                 "local_shapes_ok": checks.pop("local_shapes_ok"),
+                 "launches": ssm_launches(),
+                 "tokens": {r.rid: list(r.out_tokens)
+                            for r in eng.requests.values()},
+                 "cache_bytes": _cache_bytes(eng.cache),
+                 "weight_bytes": _cache_bytes(eng.params),
+                 "compute_weight_bytes": _nbytes(leaves(form)),
+                 "host_staged_calls": comm.HOST_STAGED["calls"]
+                 - staged["calls"]}
+        if ctx is None:
+            saved[arch] = {"tokens": serve["tokens"],
+                           "logits": {rid: torch.stack(rs).cpu()
+                                      for rid, rs in checks.items()}}
+        else:
+            serve["checks"] = checks
+        rows.append({"arch": arch, "rank": None if ctx is None
+                     else ctx.model_rank, "train": train, "serve": serve})
+        del eng, params, form, checks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, (saved if ctx is None else None)
+
+
+def _leaf_errors(whole: dict, ranks: list) -> dict:
+    """{moment leaf: |its norm over the ranks - the unsharded norm| / the
+    larger of the unsharded norm and 1e-3 of the largest leaf's of that
+    moment}; a leaf that one rank holds split and the other whole, or whose
+    whole copies differ between the ranks by more than ``SSM_LEAF_RTOL``,
+    reads inf."""
+    top = {k: max(math.sqrt(s) for name, (s, _) in whole.items()
+                  if name.startswith(k)) for k in ("m/", "v/")}
+    out = {}
+    for name, (s, _) in whole.items():
+        parts = [rk[name] for rk in ranks]
+        split = {p[1] for p in parts}
+        if split == {True}:
+            got = sum(p[0] for p in parts)
+        elif split == {False} and abs(math.sqrt(parts[0][0]) - math.sqrt(
+                parts[1][0])) <= SSM_LEAF_RTOL * math.sqrt(parts[0][0]):
+            got = parts[0][0]
+        else:
+            out[name] = math.inf
+            continue
+        ref = math.sqrt(s)
+        out[name] = abs(math.sqrt(got) - ref) / max(ref, 1e-3 * top[name[:2]])
+    return out
+
+
+def _ssm_verdict(whole: list, ranks: list, seconds: float) -> dict:
+    """The split ssm run's record from the unsharded rows (``whole``) and
+    each rank's (``_ssm_rows``); fails the phase on a missed gate."""
+    total = lambda b: b["split_whole"] + b["replicated"]  # noqa: E731
+    runs, bad, launches = [], [], {k: 0 for k in ssm_launches()}
+    for i, arch in enumerate(TRAIN_SSM):
+        rows, w = [rk[i] for rk in ranks], whole[i]
+        wt = w["train"]
+        leaf = _leaf_errors(wt["moments"], [r["train"]["moments"]
+                                            for r in rows])
+        worst = max(leaf, key=leaf.get)
+        for row in rows:
+            tr, sv = row["train"], row["serve"]
+            sv["tokens"] = {int(k): v for k, v in sv["tokens"].items()}
+            sv["forced"] = forced_summary(sv.pop("checks"))
+            for part in (tr, sv):
+                for k, n in part["launches"].items():
+                    launches[k] += n
+            cb, wb = sv["cache_bytes"], sv["weight_bytes"]
+            if len(tr["steps"]) != len(wt["steps"]) or any(
+                    abs(s[k] - u[k]) > SSM_TWO_RANK_RTOL * abs(u[k])
+                    for s, u in zip(tr["steps"], wt["steps"])
+                    for k in ("loss", "grad_norm")) or \
+                    tr["launches"] != wt["launches"] or \
+                    sv["launches"] != w["serve"]["launches"] or \
+                    sv["forced"]["err_over_max"] > LOGIT_TOL or any(
+                        d["gap_over_max"] >= TOKEN_GAP_TOL
+                        for d in sv["forced"]["argmax_differs"]) or \
+                    not sv["local_shapes_ok"] or \
+                    2 * cb["split_local"] != cb["split_whole"] or \
+                    total(cb) != total(w["serve"]["cache_bytes"]) or \
+                    2 * wb["split_local"] != wb["split_whole"] or \
+                    total(wb) != total(w["serve"]["weight_bytes"]) or \
+                    sv["compute_weight_bytes"] > \
+                    wb["split_local"] + wb["replicated"]:
+                bad.append(f"{arch}: rank {row['rank']}")
+            tr["moments_split"] = sum(v[1] for v in tr.pop(
+                "moments").values())
+        if leaf[worst] > SSM_LEAF_RTOL:
+            bad.append(f"{arch}: moment leaf {worst} {leaf[worst]}")
+        wt["moments"] = len(wt["moments"])
+        runs.append({"arch": arch, "reduced": [
+            f"n_layers {get_config(arch).n_layers} -> "
+            f"{TRAIN_SSM[arch]['n_layers']}"],
+            "ranks_agree": rows[0]["serve"]["tokens"]
+            == rows[1]["serve"]["tokens"],
+            "leaf_err_max": leaf[worst], "leaf_err_max_at": worst,
+            "unsharded": w, "ranks": rows})
+        if not runs[-1]["ranks_agree"]:
+            bad.append(f"{arch}: ranks disagree")
+    out = {"note": "two ranks share one card (cuda:0) over gloo: this "
+                   "checks the split ssm layers, not scaling",
+           "mesh": [1, 2], "train_flags": dataclasses.asdict(SSM_TRAIN_FLAGS),
+           "train_steps": SSM_TRAIN_STEPS, "train_rtol": SSM_TWO_RANK_RTOL,
+           "leaf_rtol": SSM_LEAF_RTOL, "decode_steps":
+           SSM_TWO_RANK_DECODE, "logit_tol": LOGIT_TOL,
+           "token_gap_tol": TOKEN_GAP_TOL, **TRAIN_SSM_SHAPE,
+           "runs": runs, "launches": launches, "ranks_s": seconds}
+    if bad:
+        fail(f"sharded two-rank ssm {bad}: {out}")
     return out
 
 
@@ -3873,15 +4170,19 @@ def phase_sharded(card: str) -> dict:
           f"{two['ranks'][0]['host_staged']['calls']} calls through host "
           f"memory", file=sys.stderr)
     two_serve = sharded_serve_two_ranks(card)
+    two_ssm = two_serve["ssm"]
     row = {"phase": "sharded", "card": card, "train": train, "serve": serve,
            "two_ranks": two, "two_rank_serve": two_serve,
            "seconds": time.perf_counter() - t}
     emit(row)
-    return {**train["runs"]["sharded"]["launches"],
+    return {**{k: v + two_ssm["launches"][k]
+               for k, v in train["runs"]["sharded"]["launches"].items()},
             "serve_flash_fwd": serve["launches"]["flash_fwd"],
             "two_rank_serve_flash_fwd": sum(
                 r["flash_fwd"] for run in two_serve["runs"]
-                for r in run["ranks"])}
+                for r in run["ranks"]),
+            "wkv_scan": two_ssm["launches"]["wkv_scan"],
+            "ssd_scan": two_ssm["launches"]["ssd_scan"]}
 
 
 # ----------------------------------------------------------------- dryrun
@@ -4175,9 +4476,9 @@ def main() -> int:
                       "campaign": campaign_launches,
                       "drivers": drivers["systolic_matmul"]},
                      {"fuzz": [mm_rows[i] for i in MM_FUZZ],
-                      "fabric": mm_rows[MM_SHARD],
+                      "fabric": [mm_rows[MM_SHARD], mm_rows[MM_SHARD2]],
                       "sweep": [mm_rows[i] for i in
-                                (MM_MAIN, MM_SHARD2, MM_SHARD,
+                                (MM_MAIN, *MM_DEVICES_SWEEP,
                                  *MM_FIG5_SWEEP)],
                       "replay": [mm_rows[i] for i in (MM_MAIN, *MM_FUZZ)],
                       "profile": mm_rows[MM_SHARD],
@@ -4230,12 +4531,16 @@ def main() -> int:
                      ref + "mamba2_scan/kernel.py:84",
                      ssd_rows[SSD_MAIN], ssd_rows,
                      {"train_ssm": ssm["ssd_scan"],
-                      "serve_zamba2": zamba["ssd_scan"]}),
+                      "serve_zamba2": zamba["ssd_scan"],
+                      "sharded": sharded["ssd_scan"]},
+                     {"sharded": ssd_rows[SSD_LOCAL]}),
         kernel_entry("wkv_scan", src + "wkv_scan.cu",
                      ref + "rwkv6_wkv/kernel.py:62",
                      wkv_rows[WKV_MAIN], wkv_rows,
                      {"train_ssm": ssm["wkv_scan"],
-                      "serve_rwkv6": rwkv["wkv_scan"]}),
+                      "serve_rwkv6": rwkv["wkv_scan"],
+                      "sharded": sharded["wkv_scan"]},
+                     {"sharded": wkv_rows[WKV_LOCAL]}),
     ]})
     emit({"phase": "done", "card": card,
           "seconds": time.perf_counter() - t_start})

@@ -16,6 +16,14 @@ since its forward never calls its Pallas kernel.  Decode stays
 Projections use separate matrices per component (z, x, B, C, dt) as in
 the reference.  Where the reference mixes a bf16 operand into a float32
 operation, JAX promotes it; the port casts it up explicitly (exact).
+
+Under a sharding context the layer runs on this rank's heads where its
+weights hold them (``models/transformer.py``'s ``_split_dim``: ``w_z`` /
+``w_x`` / ``w_dt`` / ``conv_x`` / ``A_log`` / ``D`` / ``dt_bias`` /
+``norm`` their heads' share of ``d_in`` or ``H``, ``w_out`` its rows;
+``w_B`` / ``w_C`` / ``conv_B`` / ``conv_C`` whole): the SSD scan sees only
+them, the gated norm over all of ``d_in`` sums the group's squares, and
+the model group sums the output projection.
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.mamba2_scan import ops as ssd_ops
 from repro_torch.models import layers
+from repro_torch.sharding import comm
 
 
 def dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
@@ -77,7 +86,8 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     y = xp[:, 0:L] * w[0][None, None, :]
     for i in range(1, cw):
         y = y + xp[:, i:i + L] * w[i][None, None, :]
-    return F.silu(y), xp[:, -(cw - 1):]
+    # the tail is a copy: a view would keep all of xp alive in a cache
+    return F.silu(y), xp[:, -(cw - 1):].clone()
 
 
 def _ssd_chunk(state, xs, dt, A, B_, C_):
@@ -105,22 +115,62 @@ def _ssd_chunk(state, xs, dt, A, B_, C_):
     return state, y
 
 
-def mamba2_forward(w: dict, x: torch.Tensor, cfg: ModelConfig):
+def _split(w: dict, cfg: ModelConfig) -> bool:
+    """Whether ``w`` holds this rank's share of the heads."""
+    return w["A_log"].shape[-1] < dims(cfg)[1]
+
+
+def _gated_norm(y, z, w_norm, cfg: ModelConfig, ctx):
+    """``rms_norm(y * silu(z))`` over all of ``d_in``.  With ``ctx`` (y, z
+    and ``w_norm`` this rank's share of ``d_in``) the mean of squares
+    takes the model group's sum of the local sums of squares; that sum's
+    backward sums too (``comm.reduce_model``), since each rank uses it
+    only for its own share."""
+    g = y * F.silu(z)
+    if ctx is None:
+        return layers.rms_norm(g, w_norm, cfg.norm_eps)
+    gf = g.float()
+    ss = comm.reduce_model((gf * gf).sum(dim=-1, keepdim=True), ctx)
+    var = ss / (gf.shape[-1] * ctx.msize)
+    return (gf * torch.rsqrt(var + cfg.norm_eps) * w_norm.float()).to(g.dtype)
+
+
+def _project(w: dict, x: torch.Tensor, ctx):
+    """(z, xs, B_, C_, dt before its softplus) of x.  With ``ctx`` z / xs /
+    dt are this rank's columns, and their input enters through
+    ``comm.to_model_region`` (its gradient the group's sum); B_ / C_,
+    read by every head, take x as it is."""
+    xh = comm.to_model_region(x, ctx) if ctx is not None else x
+    return (xh @ w["w_z"], xh @ w["w_x"], x @ w["w_B"], x @ w["w_C"],
+            xh @ w["w_dt"])
+
+
+def _out(w: dict, y, ctx):
+    y = y @ w["w_out"]
+    return comm.from_model_region(y, ctx) if ctx is not None else y
+
+
+def mamba2_forward(w: dict, x: torch.Tensor, cfg: ModelConfig, ctx=None):
     """x (B,L,d) from a zero state and empty conv tails -> (y (B,L,d),
     (final_state, conv_tails)).  L % chunk == 0.  The reference's
     ``state`` / ``conv_tails`` arguments, which no caller of either package
-    passes, are not taken."""
+    passes, are not taken.  Where ``w`` holds this rank's heads (under
+    ``ctx``) the state and the ``conv_x`` tail are of those heads."""
     B, L, d = x.shape
     s = cfg.ssm
-    d_in, H, P, N = dims(cfg)
-    z = x @ w["w_z"]
-    xs = x @ w["w_x"]
-    B_ = x @ w["w_B"]
-    C_ = x @ w["w_C"]
-    dt = F.softplus((x @ w["w_dt"]).float() + w["dt_bias"].float())
+    ctx = ctx if _split(w, cfg) else None
+    H, P = w["A_log"].shape[-1], s.head_dim
+    d_in = H * P
+    z, xs, B_, C_, dt = _project(w, x, ctx)
+    dt = F.softplus(dt.float() + w["dt_bias"].float())
     xs, t_x = _causal_conv(xs, w["conv_x"])
     B_, t_B = _causal_conv(B_, w["conv_B"])
     C_, t_C = _causal_conv(C_, w["conv_C"])
+    if ctx is not None:
+        # every head reads B_ / C_: each rank's scan gives its heads'
+        # share of their gradient, and the group sums the shares
+        B_ = comm.to_model_region(B_, ctx)
+        C_ = comm.to_model_region(C_, ctx)
     A = -torch.exp(w["A_log"]).float()
 
     cl = min(s.chunk, L)
@@ -128,21 +178,22 @@ def mamba2_forward(w: dict, x: torch.Tensor, cfg: ModelConfig):
     y, state = ssd_ops.ssd_scan(xs.reshape(B, L, H, P), dt, B_, C_, A,
                                 w["D"].float(), chunk=cl)
     y = y.reshape(B, L, d_in).to(x.dtype)
-    y = layers.rms_norm(y * F.silu(z), w["norm"], cfg.norm_eps)
-    return y @ w["w_out"], (state, (t_x, t_B, t_C))
+    y = _gated_norm(y, z, w["norm"], cfg, ctx)
+    return _out(w, y, ctx), (state, (t_x, t_B, t_C))
 
 
 def mamba2_decode(w: dict, x: torch.Tensor, cfg: ModelConfig, state,
-                  conv_tails):
+                  conv_tails, ctx=None):
     """x (B,1,d) single-token step. state (B,H,P,N) f32;
-    conv_tails: 3 tensors (B,cw-1,C)."""
+    conv_tails: 3 tensors (B,cw-1,C).  Where ``w`` holds this rank's heads
+    (under ``ctx``) so do ``state`` and the ``conv_x`` tail; the
+    ``conv_B`` / ``conv_C`` tails are whole."""
     B = x.shape[0]
-    d_in, H, P, N = dims(cfg)
-    z = x @ w["w_z"]
-    xs = x @ w["w_x"]
-    B_ = x @ w["w_B"]
-    C_ = x @ w["w_C"]
-    dt = F.softplus((x @ w["w_dt"]).float() + w["dt_bias"].float())[:, 0]
+    ctx = ctx if _split(w, cfg) else None
+    H, P = w["A_log"].shape[-1], cfg.ssm.head_dim
+    d_in = H * P
+    z, xs, B_, C_, dt = _project(w, x, ctx)
+    dt = F.softplus(dt.float() + w["dt_bias"].float())[:, 0]
     t_x, t_B, t_C = conv_tails
     xs, t_x = _causal_conv(xs, w["conv_x"], t_x)
     B_, t_B = _causal_conv(B_, w["conv_B"], t_B)
@@ -158,5 +209,5 @@ def mamba2_decode(w: dict, x: torch.Tensor, cfg: ModelConfig, state,
     y = torch.einsum("bn,bhpn->bhp", C1, state)
     y = y + w["D"].float()[None, :, None] * xs1
     y = y.reshape(B, 1, d_in).to(x.dtype)
-    y = layers.rms_norm(y * F.silu(z), w["norm"], cfg.norm_eps)
-    return y @ w["w_out"], (state, (t_x, t_B, t_C))
+    y = _gated_norm(y, z, w["norm"], cfg, ctx)
+    return _out(w, y, ctx), (state, (t_x, t_B, t_C))

@@ -16,6 +16,12 @@ kernel launches there, as in the reference.
 Where the reference mixes a bf16 operand into a float32 product, JAX
 promotes the bf16 operand; PyTorch does not, so the port casts it up
 explicitly (exact).
+
+Under a sharding context both mixes run on this rank's share of the
+weights that the reference's rule splits (``models/transformer.py``'s
+``_split_dim``): the time-mix on its heads, the channel-mix on its share
+of the hidden dim, each with a row-parallel output summed over the model
+group (``sharding/comm.py``).
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
 from repro_torch.models import layers
+from repro_torch.sharding import comm
 
 CHUNK = 16
 LORA_MIX = 32
@@ -77,15 +84,15 @@ def _shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
 
 
 def _ddlerp(x, xprev, maa_x, maa, maa_A, maa_B):
-    """Data-dependent lerp producing the 5 mixed inputs (w,k,v,r,g)."""
+    """Data-dependent lerp producing the 5 mixed inputs (w,k,v,r,g),
+    stacked on dim 2: (B,L,5,d)."""
     dx = xprev - x                                          # (B,L,d)
     xxx = x + dx * maa_x
     lo = torch.tanh(xxx @ maa_A)                            # (B,L,5*32)
     B, L, _ = x.shape
     lo = lo.reshape(B, L, 5, LORA_MIX)
     mix = torch.einsum("blfr,frd->blfd", lo, maa_B)         # (B,L,5,d)
-    out = x[:, :, None, :] + dx[:, :, None, :] * (maa[None, None] + mix)
-    return [out[:, :, i] for i in range(5)]                 # w,k,v,r,g
+    return x[:, :, None, :] + dx[:, :, None, :] * (maa[None, None] + mix)
 
 
 def _wkv_chunk(state, r, k, v, decay, u):
@@ -103,20 +110,33 @@ def _wkv_chunk(state, r, k, v, decay, u):
 
 
 def time_mix(w: dict, x: torch.Tensor, cfg: ModelConfig, shift_prev,
-             state: Optional[torch.Tensor], chunk: int = CHUNK):
+             state: Optional[torch.Tensor], chunk: int = CHUNK, ctx=None):
     """x (B,L,d); shift_prev (B,1,d); state (B,H,K,V) f32, or None for a
-    zero state (the WKV-6 kernel route).  Returns (y, shift, state)."""
+    zero state (the WKV-6 kernel route).  Returns (y, shift, state).
+
+    Where ``w`` holds this rank's heads (under ``ctx``: ``u`` / ``ln``
+    have fewer rows than ``cfg.n_heads``, ``w_r`` / ``w_k`` / ``w_v`` /
+    ``w_g`` / ``decay_w`` / ``decay_B`` the heads' columns, ``w_o`` their
+    rows) the layer runs on them: the state is of those heads, the WKV-6
+    scan sees only them, the per-head norm is local, and the model group
+    sums the output projection.  The mixed inputs k / v / r / g and the
+    LoRA decay hidden enter through ``comm.to_model_region``, so that the
+    gradients of ``maa_*``, ``decay_A`` and ``x`` are the group's sums."""
     B, L, d = x.shape
-    H, K = cfg.n_heads, cfg.rwkv.head_size
+    H, K = w["u"].shape[-2], cfg.rwkv.head_size
+    split = H < cfg.n_heads
+    region = (lambda t: comm.to_model_region(t, ctx)) if split else \
+        (lambda t: t)
     xprev = _shift(x, shift_prev)
-    xw, xk, xv, xr, xg = _ddlerp(x, xprev, w["maa_x"], w["maa"],
-                                 w["maa_A"], w["maa_B"])
+    mixed = _ddlerp(x, xprev, w["maa_x"], w["maa"], w["maa_A"], w["maa_B"])
+    xw = mixed[:, :, 0]
+    xk, xv, xr, xg = region(mixed[:, :, 1:]).unbind(2)
     r = (xr @ w["w_r"]).reshape(B, L, H, K).float()
     k = (xk @ w["w_k"]).reshape(B, L, H, K).float()
     v = (xv @ w["w_v"]).reshape(B, L, H, K).float()
     g = F.silu(xg @ w["w_g"])
-    w_raw = w["decay_w"].float() + torch.tanh(
-        xw.float() @ w["decay_A"].float()) @ w["decay_B"].float()
+    hid = region(torch.tanh(xw.float() @ w["decay_A"].float()))
+    w_raw = w["decay_w"].float() + hid @ w["decay_B"].float()
     decay = torch.exp(-torch.exp(w_raw.reshape(B, L, H, K)))  # in (0,1)
     u = w["u"].float()
 
@@ -134,15 +154,28 @@ def time_mix(w: dict, x: torch.Tensor, cfg: ModelConfig, shift_prev,
             ys.append(yc)
         y = torch.cat(ys, dim=1)
     y = layers.head_rms_norm(y, w["ln"], cfg.norm_eps)
-    y = (y.reshape(B, L, d) * g).to(x.dtype)
-    return y @ w["w_o"], x[:, -1:], state
+    y = (y.reshape(B, L, H * K) * g).to(x.dtype)
+    out = y @ w["w_o"]
+    if split:
+        out = comm.from_model_region(out, ctx)
+    # the shift is a copy: a view would keep all of x alive in a cache
+    return out, x[:, -1:].clone(), state
 
 
-def channel_mix(w: dict, x: torch.Tensor, shift_prev):
+def channel_mix(w: dict, x: torch.Tensor, shift_prev, ctx=None):
+    """-> (y, shift).  ``ctx``: given where ``w_k`` / ``w_v`` hold this
+    rank's share of the hidden dim (None where they are whole): ``xk``
+    enters through ``comm.to_model_region`` and the model group sums
+    ``kk @ w_v`` before the receptance gate (``w_r`` is whole)."""
     xprev = _shift(x, shift_prev)
     dx = xprev - x
     xk = x + dx * w["maa_k"]
     xr = x + dx * w["maa_r"]
+    if ctx is not None:
+        xk = comm.to_model_region(xk, ctx)
     kk = torch.square(F.relu(xk @ w["w_k"]))
-    out = torch.sigmoid(xr @ w["w_r"]) * (kk @ w["w_v"])
-    return out, x[:, -1:]
+    kv = kk @ w["w_v"]
+    if ctx is not None:
+        kv = comm.from_model_region(kv, ctx)
+    out = torch.sigmoid(xr @ w["w_r"]) * kv
+    return out, x[:, -1:].clone()

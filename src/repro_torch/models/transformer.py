@@ -35,17 +35,25 @@ programs with GSPMD; the port runs them as explicit SPMD on local tensors
 (``sharding/comm.py``).  The state lives as DTensors in the reference's
 layouts (``sharding/specs.py``); each entry point — training, prefill and
 decode alike — turns every leaf into the form its use needs
-(``_compute_params``): this rank's heads of ``wq`` / ``wk`` / ``wv`` /
-``wo`` and its share of a dense MLP's hidden dim where the model axis
-divides the heads (Megatron tensor parallelism: the kernels run on the
-local heads), its rows of the vocab (the embedding lookup and the logits,
-vocab-parallel as in the reference), its experts where the model axis
-divides them (the pjit layer: ``moe_apply`` of this rank's experts over
-the routing of all the data group's tokens; ``moe_mode="ep_shardmap"``:
-``sharding/ep.py``),
-every other leaf whole.  Activations carry the batch rows of this rank's
-data shard where the data axes divide the batch (``batch_specs``' rule),
-else all of them; the model group computes the rest alike.  With
+(``_compute_params``), this rank's share of every leaf that the
+reference's rule splits, in the dim it splits (``_split_dim``; Megatron
+tensor parallelism, the kernels on the local heads): the heads of
+``wq`` / ``wk`` / ``wv`` / ``wo`` of self- and the vlm's cross attention
+and a share of a dense MLP's hidden dim; rwkv6's time-mix on its heads
+(the WKV-6 scan sees them) and its channel-mix on a share of its hidden
+dim; the mamba2 layers on their heads (the SSD scan sees them; the gated
+norm over all of ``d_in`` sums the group's squares,
+``comm.reduce_model``); its rows of the vocab (the embedding lookup and
+the logits, vocab-parallel as in the reference); its experts where the
+model axis divides them (the pjit layer: ``moe_apply`` of this rank's
+experts over the routing of all the data group's tokens;
+``moe_mode="ep_shardmap"``: ``sharding/ep.py``).  Every other leaf is
+whole (norms, gates, routers, rwkv6's token-shift mixes and LoRAs, the
+mamba2 layers' ``B`` / ``C`` projections), but rwkv6's ``decay_B``, cut
+to the columns of this rank's heads.  Activations carry the batch rows
+of this rank's data shard where the data axes divide the batch
+(``batch_specs``' rule), else all of them; the model group computes the
+rest alike.  With
 ``sequence_parallel`` the residual stream between the layers of a dense /
 moe / audio stack keeps this rank's share of the sequence.  The serving
 cache is this rank's shard in ``cache_specs``' layout (rows on the data
@@ -353,6 +361,42 @@ def _kv_for_heads(cfg, ctx, k, v, Hl):
     return k.index_select(2, idx), v.index_select(2, idx)
 
 
+def _heads_in(cfg, ctx, w, h):
+    """(h, wk, wv, Hl) of an attention block over ``h``: where ``w["wq"]``
+    holds this rank's ``Hl`` heads, ``h`` — and ``wk`` / ``wv`` where they
+    hold all KH heads on every rank — enter through
+    ``comm.to_model_region``, so their gradients are the group's sums."""
+    Hl = w["wq"].shape[-1] // cfg.head_dim
+    wk, wv = w["wk"], w["wv"]
+    if Hl < cfg.n_heads:
+        h = comm.to_model_region(h, ctx)
+        if wk.shape[-1] == cfg.d_kv:        # all KH heads on every rank
+            wk = comm.to_model_region(wk, ctx)
+            wv = comm.to_model_region(wv, ctx)
+    return h, wk, wv, Hl
+
+
+def _heads_kv(cfg, ctx, k, v, Hl, return_kv):
+    """(k, v that this rank's ``Hl`` query heads read, the (k, v) of all
+    KH heads that a cache keeps, or None without ``return_kv``), from k /
+    v (B, S, KH or this rank's KH share, hd)."""
+    tp = Hl < cfg.n_heads
+    kv = (k, v)
+    if tp and k.shape[2] == cfg.n_kv_heads:
+        k, v = _kv_for_heads(cfg, ctx, k, v, Hl)
+    elif tp and return_kv:                  # the cache holds all KH heads
+        kv = (comm.gather_model(k, ctx, 2), comm.gather_model(v, ctx, 2))
+    return k, v, kv if return_kv else None
+
+
+def _heads_out(cfg, ctx, w, o):
+    """o (B, S, Hl, hd) through ``w["wo"]``: where ``o`` is this rank's
+    heads', the model group sums their shares of the projection."""
+    B, S, Hl, hd = o.shape
+    y = o.reshape(B, S, Hl * hd) @ w["wo"]
+    return comm.from_model_region(y, ctx) if Hl < cfg.n_heads else y
+
+
 def _attn_out(cfg, flags: RunFlags, ctx, w, ln, x, pos, *, window=0,
               return_kv=False):
     """The attention block's output projection (this rank's share of the
@@ -360,25 +404,14 @@ def _attn_out(cfg, flags: RunFlags, ctx, w, ln, x, pos, *, window=0,
     layer's k / v (all KH heads)."""
     B, S, _ = x.shape
     hd = cfg.head_dim
-    h = layers.rms_norm(x, ln, cfg.norm_eps)
-    Hl = w["wq"].shape[-1] // hd
-    tp = Hl < cfg.n_heads
-    wk, wv = w["wk"], w["wv"]
-    if tp:
-        h = comm.to_model_region(h, ctx)
-        if wk.shape[-1] == cfg.d_kv:        # all KH heads on every rank
-            wk = comm.to_model_region(wk, ctx)
-            wv = comm.to_model_region(wv, ctx)
+    h, wk, wv, Hl = _heads_in(cfg, ctx, w,
+                              layers.rms_norm(x, ln, cfg.norm_eps))
     q = (h @ w["wq"]).reshape(B, S, Hl, hd)
     k = (h @ wk).reshape(B, S, wk.shape[-1] // hd, hd)
     v = (h @ wv).reshape(B, S, wv.shape[-1] // hd, hd)
     q = layers.apply_rope(q, pos, cfg.rope)
     k = layers.apply_rope(k, pos, cfg.rope)
-    kv = (k, v)
-    if tp and k.shape[2] == cfg.n_kv_heads:
-        k, v = _kv_for_heads(cfg, ctx, k, v, Hl)
-    elif tp and return_kv:                  # the cache holds all KH heads
-        kv = (comm.gather_model(k, ctx, 2), comm.gather_model(v, ctx, 2))
+    k, v, kv = _heads_kv(cfg, ctx, k, v, Hl, return_kv)
     spec = AttnSpec(causal=cfg.causal, window=window, q_chunk=flags.q_chunk,
                     kv_chunk=flags.kv_chunk,
                     skip_masked_tiles=flags.skip_masked_tiles,
@@ -423,13 +456,15 @@ def _mlp_out(cfg, ctx, w, ln, x):
     return layers.mlp_apply(w, h, cfg.mlp_type)
 
 
-def mlp_block(cfg, w, ln, x, ctx=None):
-    """Under ``ctx``, where the weights hold this rank's share of the
-    hidden dim, the model group sums the output."""
+def _mlp_sum(cfg, ctx, w, ln, x):
+    """The mlp's output: under ``ctx``, where the weights hold this rank's
+    share of the hidden dim, the model group sums the shares."""
     y = _mlp_out(cfg, ctx, w, ln, x)
-    if _mlp_split(cfg, w):
-        y = comm.from_model_region(y, ctx)
-    return x + y
+    return comm.from_model_region(y, ctx) if _mlp_split(cfg, w) else y
+
+
+def mlp_block(cfg, w, ln, x, ctx=None):
+    return x + _mlp_sum(cfg, ctx, w, ln, x)
 
 
 def _moe_tokens(cfg, flags: RunFlags, ctx, w_moe, ht):
@@ -592,25 +627,33 @@ def _forward_dense(cfg, flags, ctx, bl, x, pos, aux, collect_cache,
                     "v": torch.stack([v for _, v in kvs])}
 
 
-def _cross_block(cfg, flags, cw, x, pos, patches, ppos):
+def _cross_block(cfg, flags, ctx, cw, x, pos, patches, ppos,
+                 return_kv=False):
     """The vlm's gated cross attention over the patches (non-causal) and
-    its gated mlp -> (x, (k, v) of the patches)."""
+    its gated mlp -> (x, (k, v) of the patches, all KH heads, or None).
+    Under ``ctx``, where ``cw["wq"]`` holds this rank's heads, the block
+    runs on them as a self-attention block does (``_heads_in``,
+    ``_heads_kv``: the patches' k / v of this rank's KV heads, or picked
+    from all of them where ``wk`` / ``wv`` are whole; gathered over the
+    model group for the cache), the model group sums ``wo``'s shares
+    before the gate, and the gated mlp is split as a dense one is."""
     B, S, _ = x.shape
     M = patches.shape[1]
-    h = layers.rms_norm(x, cw["ln_q"], cfg.norm_eps)
-    q = (h @ cw["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = (patches @ cw["wk"]).reshape(B, M, cfg.n_kv_heads, cfg.head_dim)
-    v = (patches @ cw["wv"]).reshape(B, M, cfg.n_kv_heads, cfg.head_dim)
+    hd = cfg.head_dim
+    h, wk, wv, Hl = _heads_in(cfg, ctx, cw,
+                              layers.rms_norm(x, cw["ln_q"], cfg.norm_eps))
+    q = (h @ cw["wq"]).reshape(B, S, Hl, hd)
+    k = (patches @ wk).reshape(B, M, wk.shape[-1] // hd, hd)
+    v = (patches @ wv).reshape(B, M, wv.shape[-1] // hd, hd)
+    k, v, kv = _heads_kv(cfg, ctx, k, v, Hl, return_kv)
     spec = AttnSpec(causal=False, q_chunk=flags.q_chunk,
                     kv_chunk=flags.kv_chunk)
     o = attention(q, k, v, impl=flags.attn_impl, spec=spec, q_pos=pos,
                   kv_pos=ppos)
-    x = x + torch.tanh(cw["gate"]).to(x.dtype) * (
-        o.reshape(B, S, cfg.d_q) @ cw["wo"])
-    h = layers.rms_norm(x, cw["ln2"], cfg.norm_eps)
+    x = x + torch.tanh(cw["gate"]).to(x.dtype) * _heads_out(cfg, ctx, cw, o)
     x = x + torch.tanh(cw["gate_mlp"]).to(x.dtype) * \
-        layers.mlp_apply(cw["mlp"], h, cfg.mlp_type)
-    return x, (k, v)
+        _mlp_sum(cfg, ctx, cw["mlp"], cw["ln2"], x)
+    return x, kv
 
 
 def _forward_vlm(cfg, flags, ctx, bl, x, pos, patches, collect_cache,
@@ -633,8 +676,8 @@ def _forward_vlm(cfg, flags, ctx, bl, x, pos, patches, collect_cache,
                 kvs.append(kv_keep(*kv) if kv_keep else kv)
             else:
                 x, _ = _remat_layer(cfg, flags, ctx, pos, x, wl)
-        x, ckv = _cross_block(cfg, flags, _at(bl["cross"], ci), x, pos,
-                              patches, ppos)
+        x, ckv = _cross_block(cfg, flags, ctx, _at(bl["cross"], ci), x,
+                              pos, patches, ppos, return_kv=collect_cache)
         cross.append(ckv)
     if not collect_cache:
         return x, None
@@ -652,7 +695,7 @@ def _forward_hybrid(cfg, flags, ctx, bl, x, pos, collect_cache):
         for pi in range(per):
             h = layers.rms_norm(x, bl["mamba_ln"][si, pi], cfg.norm_eps)
             y, (st, tl) = mamba2.mamba2_forward(_at(bl["mamba"], si, pi), h,
-                                                cfg)
+                                                cfg, ctx)
             x = x + y
             if collect_cache:
                 states.append(st)
@@ -667,8 +710,9 @@ def _forward_hybrid(cfg, flags, ctx, bl, x, pos, collect_cache):
         x = mlp_block(cfg, shared["mlp"], shared["ln2"], x, ctx)
         if collect_cache:
             W = min(cfg.attn_window or x.shape[1], x.shape[1])
-            win_k.append(k[:, -W:])
-            win_v.append(v[:, -W:])
+            # copies: views would keep each layer's whole k / v alive
+            win_k.append(k[:, -W:].clone())
+            win_v.append(v[:, -W:].clone())
     if not collect_cache:
         return x, None
     grid = lambda ts: torch.stack(ts).reshape((n_super, per) + ts[0].shape)
@@ -678,28 +722,36 @@ def _forward_hybrid(cfg, flags, ctx, bl, x, pos, collect_cache):
                "win_k": torch.stack(win_k), "win_v": torch.stack(win_v)}
 
 
-def _ssm_layer(cfg, flags, w, ln1, ln2, x, collect_cache=False):
-    """One rwkv6 layer from no state -> x, or (x, its cache parts)."""
+def _cmix_ctx(cfg, w, ctx):
+    """The context of a channel-mix whose ``w_k`` / ``w_v`` hold this
+    rank's share of the hidden dim, else None."""
+    return ctx if w["w_k"].shape[-1] < cfg.d_ff else None
+
+
+def _ssm_layer(cfg, flags, ctx, w, ln1, ln2, x, collect_cache=False):
+    """One rwkv6 layer from no state -> x, or (x, its cache parts: the
+    WKV state of this rank's heads where ``w`` holds them)."""
     h = layers.rms_norm(x, ln1, cfg.norm_eps)
     shift0 = torch.zeros((h.shape[0], 1, h.shape[2]), dtype=h.dtype,
                          device=h.device)
     # state None: a zero state, through the WKV-6 kernel
     y, tshift, tstate = rwkv6.time_mix(w["tmix"], h, cfg, shift0, None,
-                                       chunk=flags.wkv_chunk)
+                                       chunk=flags.wkv_chunk, ctx=ctx)
     x = x + y
     h = layers.rms_norm(x, ln2, cfg.norm_eps)
-    y, cshift = rwkv6.channel_mix(w["cmix"], h, shift0)
+    y, cshift = rwkv6.channel_mix(w["cmix"], h, shift0,
+                                  _cmix_ctx(cfg, w["cmix"], ctx))
     x = x + y
     return (x, (tshift, tstate, cshift)) if collect_cache else x
 
 
-def _forward_ssm(cfg, flags, bl, x, collect_cache):
+def _forward_ssm(cfg, flags, ctx, bl, x, collect_cache):
     """Training under ``flags.remat`` recomputes each layer in the
     backward, as the reference's ``jax.checkpoint`` of its scan body does
     (either policy: the body names no output to keep)."""
     parts = []
     for li in range(cfg.n_layers):
-        args = (cfg, flags, _at(bl["rwkv"], li), bl["ln1"][li],
+        args = (cfg, flags, ctx, _at(bl["rwkv"], li), bl["ln1"][li],
                 bl["ln2"][li], x)
         if collect_cache:
             x, p = _ssm_layer(*args, collect_cache=True)
@@ -746,7 +798,7 @@ def forward(cfg: ModelConfig, params, batch: dict, flags: RunFlags,
         x, cache = _forward_hybrid(cfg, flags, ctx, bl, x, pos,
                                    collect_cache)
     else:
-        x, cache = _forward_ssm(cfg, flags, bl, x, collect_cache)
+        x, cache = _forward_ssm(cfg, flags, ctx, bl, x, collect_cache)
     return x, aux, cache
 
 
@@ -755,10 +807,27 @@ def forward(cfg: ModelConfig, params, batch: dict, flags: RunFlags,
 # ---------------------------------------------------------------------------
 
 
+_MAMBA_SPLIT = {"w_z": -1, "w_x": -1, "w_dt": -1, "conv_x": -1, "A_log": -1,
+                "D": -1, "dt_bias": -1, "norm": -1, "w_out": -2}
+_TMIX_SPLIT = {"w_r": -1, "w_k": -1, "w_v": -1, "w_g": -1, "decay_w": -1,
+               "decay_B": -1, "w_o": -2, "u": -2, "ln": -2}
+_CMIX_SPLIT = {"w_k": -1, "w_v": -2}
+
+
 def _split_dim(cfg, flags: RunFlags, ctx: ShardCtx, path: str,
                ndim: int) -> Optional[int]:
     """The dim of a parameter leaf that stays split over the model axis
-    in the form this rank computes with (None: the whole leaf)."""
+    in the form this rank computes with (None: the whole leaf).  It is
+    the dim that the reference's ``_param_rule`` splits, under the rule's
+    divisibility conditions, taken by whole blocks: a block's leaves are
+    split where the model axis divides its heads (attention, the vlm's
+    cross attention, rwkv6's time-mix, the mamba2 layer) or its hidden dim
+    (a dense mlp, the cross block's mlp, rwkv6's channel-mix), else all
+    whole.  One leaf more is cut than stored split: the time-mix's
+    ``decay_B`` (whole in the reference's layout), to the columns of this
+    rank's heads, so that each rank computes only its heads' decay; its
+    gradient comes back whole, in its own layout (``_compute_leaf``: the
+    model group gathers the columns' gradients)."""
     m = ctx.msize
     if m == 1:
         return None
@@ -766,7 +835,9 @@ def _split_dim(cfg, flags: RunFlags, ctx: ShardCtx, path: str,
     if path in ("embed", "lm_head"):
         return (0 if path == "embed" else ndim - 1) \
             if padded_vocab(cfg) % m == 0 else None
-    if "/attn/" in f"/{path}" and cfg.n_heads % m == 0:
+    cross_attn = path.startswith("blocks/cross/") and \
+        leaf in ("wq", "wk", "wv", "wo")
+    if ("/attn/" in f"/{path}" or cross_attn) and cfg.n_heads % m == 0:
         if leaf == "wq":
             return ndim - 1
         if leaf == "wo":
@@ -774,8 +845,8 @@ def _split_dim(cfg, flags: RunFlags, ctx: ShardCtx, path: str,
         if leaf in ("wk", "wv") and cfg.n_kv_heads % m == 0:
             return ndim - 1
         return None
-    if path.startswith(("blocks/mlp/", "blocks/shared/mlp/")) \
-            and cfg.d_ff % m == 0:
+    if path.startswith(("blocks/mlp/", "blocks/shared/mlp/",
+                        "blocks/cross/mlp/")) and cfg.d_ff % m == 0:
         if leaf in ("w_gate", "w_up", "w_in"):
             return ndim - 1
         if leaf in ("w_down", "w_out"):
@@ -787,6 +858,15 @@ def _split_dim(cfg, flags: RunFlags, ctx: ShardCtx, path: str,
         # pjit: the reference's rule puts the experts on the model axis
         # where it divides them, else they stay whole
         return 1 if cfg.moe.n_experts % m == 0 else None
+    rules, n = {}, 0
+    if path.startswith("blocks/mamba/"):
+        rules, n = _MAMBA_SPLIT, mamba2.dims(cfg)[1]
+    elif path.startswith("blocks/rwkv/tmix/"):
+        rules, n = _TMIX_SPLIT, cfg.n_heads
+    elif path.startswith("blocks/rwkv/cmix/"):
+        rules, n = _CMIX_SPLIT, cfg.d_ff
+    if leaf in rules and n % m == 0:
+        return ndim + rules[leaf]
     return None
 
 
@@ -796,24 +876,31 @@ def _compute_leaf(t, ctx: ShardCtx, dim: Optional[int],
     dim ``dim`` along the model axis (``dim`` None: the whole tensor),
     whole along the data axes.  A DTensor is redistributed so that
     autograd brings its gradient back in its own layout (summed over the
-    data axes, whose ranks hold shares of the loss); a plain tensor is
-    narrowed (a view; a tensor whose ``dim`` is not ``full`` long is
-    taken as already narrowed).  Mesh dims of one rank are never moved."""
+    data axes, whose ranks hold shares of the loss); one stored whole on
+    the model axis is cut by ``comm.split_model``, whose backward gathers
+    the chunks' gradients; a plain tensor is narrowed (a view; a tensor
+    whose ``dim`` is not ``full`` long is taken as already narrowed).
+    Mesh dims of one rank are never moved."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     if isinstance(t, DTensor):
         mesh, cur = t.device_mesh, t.placements
-        want, grad = [], []
+        want, grad, cut = [], [], False
         for i, name in enumerate(mesh.mesh_dim_names):
             if mesh.size(i) == 1:
                 want.append(cur[i])
                 grad.append(cur[i])
                 continue
             keep = name == ctx.model_axis and dim is not None
-            want.append(Shard(dim % t.dim()) if keep else Replicate())
+            # a leaf stored whole on the model axis is cut by
+            # comm.split_model below, outside DTensor's collectives
+            cut = cut or (keep and isinstance(cur[i], Replicate))
+            want.append(Shard(dim % t.dim()) if keep and not cut
+                        else Replicate())
             grad.append(Partial() if name in ctx.data_axes else want[-1])
         if tuple(want) != tuple(cur):
             t = t.redistribute(mesh, want)
-        return t.to_local(grad_placements=grad)
+        t = t.to_local(grad_placements=grad)
+        return comm.split_model(t, ctx, dim) if cut else t
     if dim is None or ctx.msize == 1:
         return t
     dim %= t.dim()
@@ -979,6 +1066,34 @@ def _rows_skip(name: str, split: bool) -> tuple:
     return (_CACHE_BATCH_AXIS[name],) if split else ()
 
 
+# the SSM state leaves (name, index in a tuple leaf) that the layers leave
+# at this rank's heads (or channels) where their weights hold its heads
+_HEAD_STATES = {("wkv_state", None), ("mamba_state", None),
+                ("conv_tails", 0)}
+
+
+def _state_heads(cfg, bl) -> bool:
+    """Whether the SSM layers of ``bl`` (blocks in compute form) run on
+    this rank's heads."""
+    if cfg.family == "ssm":
+        return bl["rwkv"]["tmix"]["u"].shape[-2] < cfg.n_heads
+    if cfg.family == "hybrid":
+        return bl["mamba"]["A_log"].shape[-1] < mamba2.dims(cfg)[1]
+    return False
+
+
+def _kept(name: str, i, spec, ctx: Optional[ShardCtx], split: bool,
+          heads: bool) -> tuple:
+    """The dims of a cache leaf that a step's tensor already holds as this
+    rank's shard: its rows where the rank computes only its data shard's,
+    and the model axis's dim of an SSM state that the layers left at this
+    rank's heads (``heads``: they ran on them)."""
+    skip = _rows_skip(name, split)
+    if heads and (name, i) in _HEAD_STATES:
+        skip += tuple(d for d, e in enumerate(spec) if e == ctx.model_axis)
+    return skip
+
+
 def _positions(spec, ctx: Optional[ShardCtx], dim: int, n_local: int) -> int:
     """The first position of this rank's slice along ``dim`` of a cache
     leaf (0 where the dim is whole)."""
@@ -1008,7 +1123,10 @@ def make_prefill_fn(cfg: ModelConfig, flags: RunFlags, ctx: Any,
     of all KV heads, gathered over the model group where the heads are
     split, then cut to this rank's positions), a vlm's patches and a
     hybrid's window slots likewise, the SSM states with their heads on
-    it.  Without a context the one rank's shard is the whole cache."""
+    it (the layers leave the WKV / SSD states and the ``conv_x`` tail at
+    this rank's heads where they ran on them; the token shifts and the
+    ``conv_B`` / ``conv_C`` tails are cut).  Without a context the one
+    rank's shard is the whole cache."""
     _check(cfg, ctx)
 
     @torch.no_grad()
@@ -1045,10 +1163,12 @@ def make_prefill_fn(cfg: ModelConfig, flags: RunFlags, ctx: Any,
                 .expand(x.shape[0], Sl).contiguous()
         if cfg.family == "hybrid":
             _window_ring(parts, S)
+        heads = _state_heads(cfg, params["blocks"])
         items = []
         for name, i, t, spec in _leaf_items(parts, specs):
             if name not in ("k", "v"):        # k / v are this rank's already
-                t = _local_dims(t, spec, ctx, _rows_skip(name, split))
+                t = _local_dims(t, spec, ctx,
+                                _kept(name, i, spec, ctx, split, heads))
             items.append((name, i, t))
         out.update(_rebuild(parts, items))
         out["pos"] = torch.full((B,), S, dtype=torch.int32, device=dev)
@@ -1206,12 +1326,15 @@ def make_decode_fn(cfg: ModelConfig, flags: RunFlags, ctx: Any = None,
     model group: a few KB a token, where a whole ``wq`` would hold every
     head's weights on every rank), its partial softmax combined over the
     model group (``combine_partials``); the token's k / v of all KV heads
-    written by the rank that holds its position.  The SSM states (a few
-    hundred MB a data shard at most) are gathered for the step along
-    their model-split heads (and, where the data axes do not divide the
-    batch, their data-split state dim), and the new ones cut back to this
-    rank's shard.  Without a context the same code runs on the whole
-    cache: one slice, no gathers."""
+    written by the rank that holds its position; the vlm's cross
+    attention the same way over its patches.  The SSM layers run on this
+    rank's heads and keep the WKV / SSD states and the ``conv_x`` tail at
+    them; the token shifts and the ``conv_B`` / ``conv_C`` tails (split on
+    ``d`` / ``N``, a few KB a row) are gathered for the step, as is a
+    state dim that the data axes split where they do not divide the
+    batch, and the new ones cut back to this rank's shard.  Without a
+    context the same code runs on the whole cache: one slice, no
+    gathers."""
     _check(cfg, ctx)
     if ctx is not None and max_len is None and ctx.msize > 1 and \
             cfg.family != "ssm":
@@ -1222,7 +1345,9 @@ def make_decode_fn(cfg: ModelConfig, flags: RunFlags, ctx: Any = None,
     def decode(params, cache, tokens):
         cdt = getattr(torch, flags.compute_dtype)
         params = _compute_params(cfg, flags, cast_params(params, cdt), ctx)
-        view = _CacheView(cfg, ctx, tokens.shape[0], max_len, cache)
+        bl = params["blocks"]
+        view = _CacheView(cfg, ctx, tokens.shape[0], max_len, cache,
+                          _state_heads(cfg, bl))
         lctx = view.lctx
         pos_all = cache["pos"]                                # (B,)
         pos = view.rows(pos_all)
@@ -1230,7 +1355,6 @@ def make_decode_fn(cfg: ModelConfig, flags: RunFlags, ctx: Any = None,
         B = tokens.shape[0]
         qpos = pos[:, None]
         x = embed_lookup(cfg, params, tokens[:, None], ctx).to(cdt)
-        bl = params["blocks"]
         barange = torch.arange(B, device=tokens.device)
         pos_l = pos.long()
 
@@ -1265,18 +1389,17 @@ def make_decode_fn(cfg: ModelConfig, flags: RunFlags, ctx: Any = None,
                     x = mlp_block(cfg, wl["mlp"], wl["ln2"], x, lctx)
                 cw = _at(bl["cross"], ci)
                 h = layers.rms_norm(x, cw["ln_q"], cfg.norm_eps)
-                q = (h @ cw["wq"]).reshape(B, 1, cfg.n_heads, cfg.head_dim)
+                q = (h @ cw["wq"]).reshape(B, 1, -1, cfg.head_dim)
                 ck, cv = cache["cross_k"][ci], cache["cross_v"][ci]
                 M = ck.shape[1]
                 # non-causal cross attention: q_pos = kv_pos = 0 everywhere
                 zero = lambda n: torch.zeros((B, n), dtype=torch.int32,
                                              device=x.device)
-                o = _attend(view, "cross_k", q, ck, cv, zero(1), zero(M))
-                x = x + torch.tanh(cw["gate"]).to(x.dtype) * (
-                    o.reshape(B, 1, cfg.d_q) @ cw["wo"])
-                h = layers.rms_norm(x, cw["ln2"], cfg.norm_eps)
+                y = _attend_heads(cfg, view, "cross_k", cw, q, ck, cv,
+                                  zero(1), zero(M))
+                x = x + torch.tanh(cw["gate"]).to(x.dtype) * y
                 x = x + torch.tanh(cw["gate_mlp"]).to(x.dtype) * \
-                    layers.mlp_apply(cw["mlp"], h, cfg.mlp_type)
+                    _mlp_sum(cfg, lctx, cw["mlp"], cw["ln2"], x)
             new_cache = dict(cache, pos=pos_all + 1)
 
         elif cfg.family == "hybrid":
@@ -1295,7 +1418,7 @@ def make_decode_fn(cfg: ModelConfig, flags: RunFlags, ctx: Any = None,
                                         cfg.norm_eps)
                     y, (st, tl) = mamba2.mamba2_decode(
                         _at(bl["mamba"], si, pi), h, cfg, mstate[si, pi],
-                        tuple(t[si, pi] for t in mtails))
+                        tuple(t[si, pi] for t in mtails), lctx)
                     x = x + y
                     states.append(st)
                     tails.append(tl)
@@ -1323,11 +1446,12 @@ def make_decode_fn(cfg: ModelConfig, flags: RunFlags, ctx: Any = None,
                 h = layers.rms_norm(x, bl["ln1"][li], cfg.norm_eps)
                 y, tsh, wst = rwkv6.time_mix(w["tmix"], h, cfg,
                                              st["tmix_shift"][li],
-                                             st["wkv_state"][li])
+                                             st["wkv_state"][li], ctx=lctx)
                 x = x + y
                 h = layers.rms_norm(x, bl["ln2"][li], cfg.norm_eps)
                 y, csh = rwkv6.channel_mix(w["cmix"], h,
-                                           st["cmix_shift"][li])
+                                           st["cmix_shift"][li],
+                                           _cmix_ctx(cfg, w["cmix"], lctx))
                 x = x + y
                 parts.append((tsh, wst, csh))
             new_cache = dict(cache, pos=pos_all + 1, **{
@@ -1349,8 +1473,8 @@ class _CacheView:
     whole: one chunk, position 0, no moves."""
 
     def __init__(self, cfg, ctx: Optional[ShardCtx], B: int,
-                 max_len: Optional[int], cache: dict):
-        self.ctx = ctx
+                 max_len: Optional[int], cache: dict, heads: bool = False):
+        self.ctx, self.heads = ctx, heads
         self.split, self.lctx = _row_ctx(ctx, B)
         if ctx is None:
             self.specs = _whole_specs(cache)
@@ -1377,13 +1501,17 @@ class _CacheView:
         ``name`` (k, v, a window or the vlm's patches), ``n_local`` long."""
         return _positions(self._spec(name), self.ctx, 2, n_local)
 
+    def _skip(self, name, i):
+        return _kept(name, i, self._spec(name, i), self.ctx, self.split,
+                     self.heads)
+
     def whole(self, name, t, i=None):
         return _whole_dims(t, self._spec(name, i), self.ctx,
-                           _rows_skip(name, self.split))
+                           self._skip(name, i))
 
     def local(self, name, t, i=None):
         return _local_dims(t, self._spec(name, i), self.ctx,
-                           _rows_skip(name, self.split))
+                           self._skip(name, i))
 
 
 def _attend(view: _CacheView, name, q, k, v, q_pos, kv_pos, *, window=0):
@@ -1421,14 +1549,10 @@ def _decode_attn(cfg, w, ln, x, qpos, kc, vc, kv_pos, at, barange,
     """One attention layer of a decode step: the token's k / v of all KV
     heads into this rank's slice of the layer's cache ``kc`` / ``vc``
     (views into the serving cache; ``at``: the token's index there,
-    outside it on the other ranks), every query head over the slice
-    (``_attend``), and this rank's heads of the output through its rows
-    of ``wo``, summed over the model group."""
+    outside it on the other ranks), then ``_attend_heads``."""
     ctx = view.ctx
     h = layers.rms_norm(x, ln, cfg.norm_eps)
     B, hd = x.shape[0], cfg.head_dim
-    Hl = w["wq"].shape[-1] // hd
-    tp = Hl < cfg.n_heads
     wk, wv = w["wk"], w["wv"]
     k1 = (h @ wk).reshape(B, 1, wk.shape[-1] // hd, hd)
     v1 = (h @ wv).reshape(B, 1, wv.shape[-1] // hd, hd)
@@ -1437,14 +1561,26 @@ def _decode_attn(cfg, w, ln, x, qpos, kc, vc, kv_pos, at, barange,
         k1, v1 = comm.gather_model(k1, ctx, 2), comm.gather_model(v1, ctx, 2)
     _set_rows(kc, barange, at, k1[:, 0].to(kc.dtype))
     _set_rows(vc, barange, at, v1[:, 0].to(vc.dtype))
-    q = (h @ w["wq"]).reshape(B, 1, Hl, hd)
+    q = (h @ w["wq"]).reshape(B, 1, -1, hd)
     q = layers.apply_rope(q, qpos, cfg.rope)
-    if tp:
+    return x + _attend_heads(cfg, view, name, w, q, kc, vc, qpos, kv_pos,
+                             window=window)
+
+
+def _attend_heads(cfg, view: _CacheView, name: str, w, q, k, v, q_pos,
+                  kv_pos, window: int = 0):
+    """The attention output projection of a decode step's q (B, 1, this
+    rank's heads, hd) over this rank's slice of the cache leaf ``name``
+    (``_attend``): where q holds this rank's heads, every query head's q
+    is gathered over the model group (a few KB a token, where a whole
+    ``wq`` would hold every head's weights on every rank), the output
+    narrowed back to this rank's heads, and the model group sums their
+    shares of ``wo``."""
+    ctx = view.ctx
+    Hl = q.shape[2]
+    if Hl < cfg.n_heads:
         q = comm.gather_model(q, ctx, 2)
-    o = _attend(view, name, q, kc, vc, qpos, kv_pos, window=window)
-    if tp:
+    o = _attend(view, name, q, k, v, q_pos, kv_pos, window=window)
+    if Hl < cfg.n_heads:
         o = o.narrow(2, ctx.model_rank * Hl, Hl)
-    y = o.reshape(B, 1, Hl * hd) @ w["wo"]
-    if tp:
-        y = comm.from_model_region(y, ctx)
-    return x + y
+    return _heads_out(cfg, ctx, w, o)

@@ -14,6 +14,9 @@ gradient of what it holds:
     model group (each rank of the region saw only part of the use).
   * ``from_model_region``: sums the partial results over the model group;
     backward is the identity (the consumers are replicated).
+  * ``reduce_model``: sums over the model group, and so does its
+    backward: for a sum that each rank then uses only in its own share of
+    a split dim (the mean of squares of an RMS norm over a split dim).
   * ``gather_model`` / ``split_model``: all-gather along a dim / keep this
     rank's chunk (backward: the chunk / the all-gather).
   * ``gather_data``: all-gather along a dim over the data group; backward
@@ -118,6 +121,17 @@ class _FromRegion(torch.autograd.Function):
         return g, None, None
 
 
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, size):
+        ctx.group, ctx.size = group, size
+        return all_reduce(x, group, size)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group, ctx.size), None, None
+
+
 class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, size, rank, dim, reduce_grad):
@@ -156,6 +170,13 @@ def from_model_region(x: torch.Tensor, sctx) -> torch.Tensor:
         return x
     g, _ = sctx.model_group
     return _FromRegion.apply(x, g, sctx.msize)
+
+
+def reduce_model(x: torch.Tensor, sctx) -> torch.Tensor:
+    if sctx.msize == 1:
+        return x
+    g, _ = sctx.model_group
+    return _Reduce.apply(x, g, sctx.msize)
 
 
 def gather_model(x: torch.Tensor, sctx, dim: int) -> torch.Tensor:

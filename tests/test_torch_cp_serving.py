@@ -29,7 +29,6 @@ import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as mp
 
 from repro.configs import get_config as ref_get_config
 from repro.configs import smoke as ref_smoke
@@ -41,6 +40,7 @@ from repro_torch.launch.mesh import make_ctx, make_test_mesh
 from repro_torch.models import transformer as tf
 from repro_torch.models.attention import (combine_partials, decode_attention,
                                           decode_attention_partial)
+from torch_ranks import spawn
 
 torch.set_num_threads(1)
 
@@ -185,8 +185,8 @@ def test_pjit_moe_with_split_experts_equals_reference(tmp_path, mesh_shape):
     whole layer does."""
     ref = _moe_reference()
     world = int(np.prod(mesh_shape))
-    mp.spawn(_rank_moe, args=(world, str(tmp_path / "store"), mesh_shape,
-                              ref), nprocs=world)
+    spawn(_rank_moe, (world, str(tmp_path / "store"), mesh_shape, ref),
+          world)
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,7 @@ import benchmarks.bench_runfarm as ref_runfarm
 import benchmarks.bench_runfarm_torch as runfarm
 import benchmarks.bench_serving_torch as serving
 import benchmarks.bench_simspeed_torch as simspeed
+from torch_ranks import ranks_lock
 
 torch.set_num_threads(1)
 
@@ -33,7 +34,8 @@ def test_runfarm_quick_digest_equals_reference(tmp_path):
     """The quick lanes (1 and 2 spawned workers) land on one digest, the
     reference's in-process campaign's; every worker reports its
     spawn-to-ready seconds on a row of its own."""
-    rows = runfarm.run(device="cpu")
+    with ranks_lock():
+        rows = runfarm.run(device="cpu")
     want = ref_runfarm.measure(ref_runfarm.QUICK_SCENARIOS, (0,),
                                tmp_path)["digest"]
     speedup = next(r for r in rows if r.startswith("speedup,"))
@@ -49,7 +51,8 @@ def test_counters_fleet_equals_reference(tmp_path):
     one fleet; the fleet counters, the workload's sample count and its
     counter totals equal the reference's."""
     sizes = counters.SWEEP_SIZES[:2]
-    m = counters.fleet_campaign(sizes, tmp_path / "twin", device="cpu")
+    with ranks_lock():
+        m = counters.fleet_campaign(sizes, tmp_path / "twin", device="cpu")
     want = ref_counters.fleet_campaign(sizes, tmp_path / "ref",
                                        worker_counts=(0,))
     assert m["digest_identical"] and m["fleet_identical"]

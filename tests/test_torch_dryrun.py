@@ -29,7 +29,6 @@ cell by its rule (with its own ``train_state_bytes_per_device``).  Held:
 import ast
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import textwrap
@@ -39,7 +38,6 @@ import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as mp
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch._tree import paths
@@ -56,6 +54,7 @@ from repro_torch.launch.mesh import make_ctx, make_production_mesh, \
 from repro_torch.launch.steps import decode_shardings
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.transformer import RunFlags
+from torch_ranks import run, spawn
 
 torch.set_num_threads(1)
 
@@ -104,9 +103,9 @@ REFERENCE = textwrap.dedent('''
 @pytest.fixture(scope="module")
 def reference():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
-    out = subprocess.run([sys.executable, "-c", REFERENCE], env=env,
-                         cwd=ROOT, capture_output=True, text=True,
-                         timeout=600, check=True)
+    out = run([sys.executable, "-c", REFERENCE], env=env,
+              cwd=ROOT, capture_output=True, text=True,
+              timeout=600, check=True)
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
@@ -162,9 +161,9 @@ def _production_record(shape: str, timeout: int) -> dict:
                 "sys.exit(dryrun.main(['--arch', 'llama3.2-1b', '--shape', "
                 f"'{shape}', '--tag', 'test']))\n")
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-        out = subprocess.run([sys.executable, "-c", code, d], env=env,
-                             cwd=ROOT, capture_output=True, text=True,
-                             timeout=timeout)
+        out = run([sys.executable, "-c", code, d], env=env,
+                  cwd=ROOT, capture_output=True, text=True,
+                  timeout=timeout)
         assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
         assert "1 OK, 0 FAIL" in out.stdout
         return json.loads((Path(d) / f"llama3.2-1b__{shape}__1pod__test"
@@ -345,7 +344,7 @@ def _ep_rank(rank, world, store):
 
 
 def test_moe_apply_ep_traces_on_two_gloo_ranks(tmp_path):
-    mp.spawn(_ep_rank, args=(2, str(tmp_path / "store")), nprocs=2)
+    spawn(_ep_rank, (2, str(tmp_path / "store")), 2)
 
 
 def _wkv_inputs(requires_grad=False):

@@ -19,7 +19,6 @@ Held for smoke moonshot and smoke phi3.5-moe:
     16 over (2, 32) inputs: two chunks, each through the layer.
 """
 import os
-import subprocess
 import sys
 import textwrap
 from pathlib import Path
@@ -28,13 +27,13 @@ import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as mp
 
 from repro_torch.configs import get_config, smoke
 from repro_torch.launch.mesh import make_ctx, make_test_mesh
 from repro_torch.models import transformer as tf
 from repro_torch.sharding import comm
 from repro_torch.sharding.ep import moe_apply_ep
+from torch_ranks import run, spawn
 
 torch.set_num_threads(1)
 
@@ -88,8 +87,8 @@ REFERENCE = textwrap.dedent('''
 def reference(tmp_path_factory):
     path = tmp_path_factory.mktemp("ep") / "ref.npz"
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    subprocess.run([sys.executable, "-c", REFERENCE, str(path), *ARCHS],
-                   check=True, env=env, cwd=ROOT, timeout=600)
+    run([sys.executable, "-c", REFERENCE, str(path), *ARCHS],
+        check=True, env=env, cwd=ROOT, timeout=600)
     return str(path)
 
 
@@ -141,4 +140,4 @@ def _rank_ep(ref_path):
 
 
 def test_moe_apply_ep_matches_reference(reference, tmp_path):
-    mp.spawn(_entry, args=(4, str(tmp_path / "store"), reference), nprocs=4)
+    spawn(_entry, (4, str(tmp_path / "store"), reference), 4)

@@ -5,13 +5,14 @@ refuses to run on the CPU when a CUDA device was asked for and there is
 none."""
 import ast
 import os
-import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+
+from torch_ranks import run
 
 torch.set_num_threads(1)
 
@@ -156,8 +157,8 @@ def test_every_submodule_imports_with_jax_blocked():
         "print('imported', len(" f"{mods!r}" "))\n")
     env = dict(os.environ,
                PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT)]))
-    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
-                         capture_output=True, text=True, timeout=300)
+    out = run([sys.executable, "-c", code], env=env, cwd=ROOT,
+              capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip() == f"imported {len(mods)}"
 
@@ -167,9 +168,9 @@ def test_chip_smoke_fails_without_cuda():
     with no CUDA device."""
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
-    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
-                         cwd=ROOT, capture_output=True, text=True,
-                         timeout=300)
+    out = run([sys.executable, str(ROOT / "chip_smoke.py")],
+              cwd=ROOT, capture_output=True, text=True,
+              timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
 
@@ -187,9 +188,9 @@ def test_twins_raise_without_cuda(rel):
     """A twin run with its defaults on a machine with no card raises the
     device error; it never carries on on the CPU."""
     _needs_no_cuda()
-    out = subprocess.run([sys.executable, str(ROOT / rel)], cwd=ROOT,
-                         capture_output=True, text=True, timeout=300,
-                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    out = run([sys.executable, str(ROOT / rel)], cwd=ROOT,
+              capture_output=True, text=True, timeout=300,
+              env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
     assert out.returncode != 0
     assert "torch.cuda.is_available() is False" in out.stderr
     assert out.stdout == ""

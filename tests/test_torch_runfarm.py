@@ -30,6 +30,7 @@ from repro_torch.runfarm import (CampaignInterrupted, CampaignManager,
                                  ResultStore, builtin, execute_unit,
                                  fork_seed, fuzz_units, golden_units,
                                  serving_units, sweep_units, unit_uid)
+from torch_ranks import ranks_lock
 
 torch.set_num_threads(1)
 
@@ -245,7 +246,8 @@ def test_two_worker_pool_matches_sequential_oracle(tmp_path):
     and deterministic report slice; each worker reported ready."""
     oracle = _campaign(tmp_path, "w0", 0).run()
     mgr = _campaign(tmp_path, "w2", 2)
-    pool = mgr.run()
+    with ranks_lock():
+        pool = mgr.run()
     assert _det(pool) == _det(oracle)
     # utilization accounting saw both workers
     assert len(pool.report["timing"]["per_worker"]) == 2
@@ -260,19 +262,20 @@ def test_worker_counts_1_2_8_and_sigkill_resume_match_oracle(tmp_path):
     respawned pool still lands on the oracle digest; a killed-then-resumed
     campaign reports identically."""
     oracle = _campaign(tmp_path, "w0", 0).run()
-    for n in (1, 2, 8):
-        res = _campaign(tmp_path, f"w{n}", n).run()
-        assert _det(res) == _det(oracle), f"workers={n} diverged"
-    # SIGKILL worker 0 before its 2nd unit: unit re-enqueued, worker
-    # respawned, digest unchanged
-    killed = _campaign(tmp_path, "kill", 2,
-                       kill_worker_after={0: 1}).run()
-    assert _det(killed) == _det(oracle)
-    assert killed.report["timing"]["workers_respawned"] >= 1
-    # clean interrupt of a POOL campaign, then resume on fresh workers
-    with pytest.raises(CampaignInterrupted):
-        _campaign(tmp_path, "intr", 2, interrupt_after=2).run()
-    resumed = _campaign(tmp_path, "intr", 2).run()
+    with ranks_lock():
+        for n in (1, 2, 8):
+            res = _campaign(tmp_path, f"w{n}", n).run()
+            assert _det(res) == _det(oracle), f"workers={n} diverged"
+        # SIGKILL worker 0 before its 2nd unit: unit re-enqueued, worker
+        # respawned, digest unchanged
+        killed = _campaign(tmp_path, "kill", 2,
+                           kill_worker_after={0: 1}).run()
+        assert _det(killed) == _det(oracle)
+        assert killed.report["timing"]["workers_respawned"] >= 1
+        # clean interrupt of a POOL campaign, then resume on fresh workers
+        with pytest.raises(CampaignInterrupted):
+            _campaign(tmp_path, "intr", 2, interrupt_after=2).run()
+        resumed = _campaign(tmp_path, "intr", 2).run()
     assert _det(resumed) == _det(oracle)
     assert resumed.report["timing"]["units_resumed_from_store"] >= 2
 
@@ -376,7 +379,7 @@ def test_campaign_walkthrough_prints_docs_transcript():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
+    with contextlib.redirect_stdout(buf), ranks_lock():
         assert mod.main(["--device", "cpu"]) == 0
     assert buf.getvalue().splitlines() == expected
     assert "final digest 88fda7c259f1e6e7" in expected[4]

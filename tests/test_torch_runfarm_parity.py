@@ -32,6 +32,7 @@ from repro_torch.convert import params_from_reference
 from repro_torch.runfarm import (CampaignManager, builtin, execute_unit,
                                  fork_seed, golden_units, serving_units,
                                  sweep_units)
+from torch_ranks import ranks_lock
 
 torch.set_num_threads(1)
 
@@ -215,8 +216,9 @@ def test_sweep_units_equal_reference(tmp_path, capture_sweeps, bug):
     if bug is None:
         seq = CampaignManager(tmp_path / "w0", units, seed=3,
                               device="cpu").run()
-        pool = CampaignManager(tmp_path / "w2", units, seed=3, workers=2,
-                               device="cpu").run()
+        with ranks_lock():
+            pool = CampaignManager(tmp_path / "w2", units, seed=3,
+                                   workers=2, device="cpu").run()
         assert _det(pool) == _det(seq)
 
 

@@ -1,7 +1,8 @@
 """The port's sharded paths on ``torch.distributed`` (gloo, CPU), each
 against the same path without a sharding context.
 
-Every test spawns its ranks (``torch.multiprocessing``, spawn), which meet
+Every test spawns its ranks (``torch.multiprocessing``, spawn; one test at
+a time across pytest's workers, ``tests/torch_ranks.py``), which meet
 through a ``FileStore`` under ``tmp_path`` (no TCP port) and run at
 ``torch.set_num_threads(1)``; a rank's failure fails the test.  Smoke
 sizes, fp32 compute unless said otherwise.  Tolerances are
@@ -29,7 +30,6 @@ import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as mp
 
 from repro_torch._tree import paths
 from repro_torch.configs import get_config, smoke
@@ -40,6 +40,7 @@ from repro_torch.models import transformer as tf
 from repro_torch.models.transformer import RunFlags
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.sharding.specs import place, to_shardings, whole_tree
+from torch_ranks import spawn
 
 torch.set_num_threads(1)
 
@@ -63,8 +64,7 @@ def _entry(rank, world, store, fn, args):
 
 
 def _spawn(tmp_path, world, fn, *args):
-    mp.spawn(_entry, args=(world, str(tmp_path / "store"), fn, args),
-             nprocs=world)
+    spawn(_entry, (world, str(tmp_path / "store"), fn, args), world)
 
 
 def _close(a, b, rtol=1e-5):
@@ -396,7 +396,8 @@ def _rank_serving(mshape, cases):
         # 2^-5 x max|logit|.  The cache is bf16 and decode attention
         # rounds its weights to the cache's type: the split rounds each
         # slice's unnormalised weights, the whole path the normalised ones
-        # (at most 0.0050 x max|logit| over these cases; 0 for rwkv6)
+        # (at most 0.0050 x max|logit| over these cases; 2.0e-6 for
+        # rwkv6, whose split sums are only its row-parallel projections')
         for rid, rows in got_logits.items():
             assert len(rows) in (1, len(want[rid])), (rid, len(rows))
             for j, row in enumerate(rows):
@@ -502,8 +503,7 @@ def _entry_nccl(rank, world, store, fn, args):
 
 
 def _spawn_nccl(tmp_path, world, fn, *args):
-    mp.spawn(_entry_nccl, args=(world, str(tmp_path / "store"), fn, args),
-             nprocs=world)
+    spawn(_entry_nccl, (world, str(tmp_path / "store"), fn, args), world)
 
 
 def _rank_nccl_step():
