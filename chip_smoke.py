@@ -68,6 +68,17 @@ card, and drives the port's paths:
     sequence of 1024 tokens: one loss + backward with the scans' kernels
     on the forward against the same with the scans through the twins of
     the reference's lax scans, and one timed ``make_train_step`` step;
+    then moonshot-v1-16b-a3b (4 of 48 layers), llama-3.2-vision-11b (5 of
+    40: four self layers, one cross layer over 1600 patches) and
+    hubert-xlarge (48 layers, two sequences) at full width, 1536 tokens a
+    sequence: one fp32 ``make_train_step`` step at smoke width with the
+    family's own head dim (128 / 128 / 80) on the card against the CPU
+    (moonshot's routing decisions compared), one bf16 loss + backward on
+    the pallas route against the naive one (the vlm's gates nonzero, its
+    patches at unit scale and every cross weight's gradient nonzero,
+    moonshot's aux above zero), and
+    one timed ``make_train_step`` step with B2 / B3 / B4 and AdamW split
+    out (``train_families``);
   * serving — rwkv6-7b and zamba2-2.7b at full width and depth (bf16
     weights) through ``ServingEngine``: eight requests rung in through the
     CSR doorbell, prefill on the WKV-6 (rwkv6) and SSD + attention
@@ -144,7 +155,8 @@ a failed fuzz scenario, an open protocol bin, a digest that does not repeat,
 a sweep that fails or whose rows depend on its worker count, an
 attribution that does not close, a replay that does not repeat its
 recording, a non-finite loss, a wrong launch count, a ``torch.compile``
-recompile limit hit, a dry-run count that is not the card's, a memory
+recompile limit hit, a routing decision of a train step that flips off
+a tie, a dry-run count that is not the card's, a memory
 estimate below 0.9 of the card's peak, a dry-run cell that fails) ends the
 run with a non-zero exit code and no last line.
 """
@@ -211,6 +223,7 @@ from repro_torch.launch import dryrun
 from repro_torch.launch import steps as steps_lib
 from repro_torch.launch.steps import make_train_state, make_train_step
 from repro_torch.models import moe as moe_lib
+from repro_torch.models.inputs import make_train_batch
 from repro_torch.models import transformer as tf
 from repro_torch.models.transformer import RunFlags, make_loss_fn
 from repro_torch.optim.adamw import AdamWConfig
@@ -473,7 +486,13 @@ FA_LOCAL = 20        # llama3.2-1b's heads on one of two model ranks (sharded)
 # tests/test_kernels_flash.py), a GQA row with G=4 (a missing head sum shows
 # there), the shape train_llama gives the kernels, zamba2's head dim in
 # fp32; then the bf16 tensor-core bodies (dk/dv and dq) at the reference's
-# rows, G=4, D=80 with a window, D=128 and a ragged length.
+# rows, G=4, D=80 with a window, D=128 and a ragged length; last, the
+# shapes training the moe, vlm and audio families gives them (phase
+# train_families): moonshot-v1-16b-a3b's and the vlm's self attention
+# (D=128, causal), the vlm's cross attention over its 1600 patches
+# (non-causal, Sq != Skv, blocks (512, 400): 1600 is no multiple of dk/dv's
+# 128-row kv tile) and hubert-xlarge's encoder (D=80, non-causal).  The
+# shape tuples read as FA_SHAPES'.
 BWD_SHAPES = [
     (2, 4, 2, 128, 16, True, 0, torch.float32, 32),
     (1, 4, 4, 64, 32, False, 0, torch.float32, 32),
@@ -488,8 +507,13 @@ BWD_SHAPES = [
     (1, 4, 2, 256, 80, True, 48, torch.bfloat16, 32),
     (1, 2, 1, 128, 128, True, 0, torch.bfloat16, 32),
     (1, 4, 1, 200, 32, True, 0, torch.bfloat16, 40),
+    (1, 16, 16, 1536, 128, True, 0, torch.bfloat16, 512),
+    (1, 32, 8, 1536, 128, True, 0, torch.bfloat16, 512),
+    (1, 32, 8, 1536, 128, False, 0, torch.bfloat16, (512, 400), 1600),
+    (2, 16, 16, 1536, 80, False, 0, torch.bfloat16, 512),
 ]
 BWD_MAIN = 4
+BWD_FAMILIES = (13, 14, 15, 16)   # moonshot, vlm self, vlm cross, hubert
 # the reference's gradient tolerance, times max(1, max|plain|); kernel,
 # plain version and autograd through the oracle take the same upcast inputs
 BWD_TOL = 5e-4
@@ -635,10 +659,17 @@ def attention_one_tf32(q, k, v, causal: bool, window: int) -> torch.Tensor:
     return (o / l).reshape(B, H, S, D)
 
 
-def check_flash(shape) -> dict:
+def attn_shape(shape) -> tuple:
+    """A row of FA_SHAPES or BWD_SHAPES as (B, H, KH, S, Skv, D, causal,
+    window, dtype, block, bq, bk)."""
     B, H, KH, S, D, causal, window, dt, blk = shape[:9]
-    Skv = shape[9] if len(shape) > 9 else S
     bq, bk = blk if isinstance(blk, tuple) else (blk, blk)
+    return (B, H, KH, S, shape[9] if len(shape) > 9 else S, D, causal,
+            window, dt, blk, bq, bk)
+
+
+def check_flash(shape) -> dict:
+    B, H, KH, S, Skv, D, causal, window, dt, blk, bq, bk = attn_shape(shape)
     rng = np.random.default_rng(B * 7919 + H * 101 + KH * 13 + S + D
                                 + (Skv - S) * 7)
     mk = lambda h, n: torch.from_numpy(
@@ -730,30 +761,31 @@ def one_rounding(name, q, k, v, dout, lse, delta, causal: bool,
     otherwise: what a tensor-core body with a single bf16 rounding would
     compute.  Its distance from the plain version, against the gate, is why
     the bf16 bodies carry them as bf16 hi + lo pairs."""
-    B, H, S, D = q.shape
-    KH = k.shape[1]
+    B, H, Sq, D = q.shape
+    KH, Skv = k.shape[1], k.shape[2]
     G = H // KH
     scale = 1.0 / D ** 0.5
-    qg = q.reshape(B, KH, G, S, D).float()
-    dog = dout.reshape(B, KH, G, S, D).float()
-    pos = torch.arange(S, device=q.device)
-    m = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    qg = q.reshape(B, KH, G, Sq, D).float()
+    dog = dout.reshape(B, KH, G, Sq, D).float()
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    m = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
     if causal:
-        m &= pos[None, :] <= pos[:, None]
+        m &= kpos <= qpos
     if window:
-        m &= pos[None, :] > pos[:, None] - window
+        m &= kpos > qpos - window
     s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) * scale
     p = torch.exp(torch.where(m, s, torch.full_like(s, -1e30))
-                  - lse.reshape(B, KH, G, S)[..., None])
+                  - lse.reshape(B, KH, G, Sq)[..., None])
     p = torch.where(m, p, torch.zeros_like(p))
     del s
     dp = torch.einsum("bkgqd,bksd->bkgqs", dog, v.float())
-    ds = p * (dp - delta.reshape(B, KH, G, S)[..., None]) * scale
+    ds = p * (dp - delta.reshape(B, KH, G, Sq)[..., None]) * scale
     del dp
     ds = ds.bfloat16().float()
     if name == "flash_dq":
         return (torch.einsum("bkgqs,bksd->bkgqd", ds, k.float())
-                .reshape(B, H, S, D),)
+                .reshape(B, H, Sq, D),)
     dv = torch.einsum("bkgqs,bkgqd->bksd", p.bfloat16().float(), dog)
     dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qg)
     return dk, dv
@@ -763,12 +795,13 @@ def check_flash_bwd(shape):
     """B3 and B4 at one shape against their plain versions and against
     autograd through the oracle.  ``delta`` comes from the oracle's fp32
     output on the upcast inputs, which is what autograd sees."""
-    B, H, KH, S, D, causal, window, dt, blk = shape
-    rng = np.random.default_rng(B * 7919 + H * 101 + KH * 13 + S + D + 1)
-    mk = lambda h: torch.from_numpy(
-        rng.normal(size=(B, h, S, D)).astype(np.float32)).cuda().to(dt)
-    q, k, v, dout = mk(H), mk(KH), mk(KH), mk(H)
-    kw = dict(causal=causal, window=window, bq=blk, bk=blk)
+    B, H, KH, S, Skv, D, causal, window, dt, blk, bq, bk = attn_shape(shape)
+    rng = np.random.default_rng(B * 7919 + H * 101 + KH * 13 + S + D + 1
+                                + (Skv - S) * 7)
+    mk = lambda h, n: torch.from_numpy(
+        rng.normal(size=(B, h, n, D)).astype(np.float32)).cuda().to(dt)
+    q, k, v, dout = mk(H, S), mk(KH, Skv), mk(KH, Skv), mk(H, S)
+    kw = dict(causal=causal, window=window, bq=bq, bk=bk)
     _, lse = FAK.flash_fwd(q, k, v, **kw)
     qf, kf, vf = (t.float().requires_grad_() for t in (q, k, v))
     o = FAref.attention_ref(qf, kf, vf, causal=causal, window=window)
@@ -783,10 +816,11 @@ def check_flash_bwd(shape):
     big = S >= 1024
     reps = 5 if big else 20
     lib_ms = time_ms(sdpa_backward(q, k, v, dout, causal, window), reps)
-    pairs = live_pairs(S, S, causal, window) * B * H
+    pairs = live_pairs(S, Skv, causal, window) * B * H
     es = q.element_size()
     in_bytes = (2 * q.numel() + 2 * k.numel()) * es + 2 * lse.numel() * 4
-    base = {"shape": [B, H, KH, S, D], "causal": causal, "window": window,
+    base = {"shape": [B, H, KH, S, D] + ([Skv] if Skv != S else []),
+            "causal": causal, "window": window,
             "block": blk, "dtype": str(dt).split(".")[1],
             "library_ms": lib_ms, "library": "sdpa backward (dq, dk, dv)"}
     rows = []
@@ -2366,31 +2400,78 @@ LOSS_RTOL, GNORM_RTOL = 5e-3, 5e-2
 SMOKE_RTOL = 1e-4
 
 
-def smoke_step_parity() -> dict:
-    """One train step at smoke(llama3.2-1b) size, fp32 compute, pallas
-    attention: on the card (kernels) against the CPU (plain versions), from
-    the same initial state and batch."""
-    cfg = smoke(get_config(LLAMA["arch"]))
+# a moe routing decision whose margin (its k-th minus its (k+1)-th router
+# probability) is under this is at a tie: the card and the CPU sum the
+# router's product in other orders, which moves a probability by about
+# 1e-7 at smoke size
+ROUTE_TIE = 1e-5
+
+
+def train_batch(cfg, B: int, S: int, gen: torch.Generator) -> dict:
+    """``make_train_batch``, with a vlm's patch embeddings scaled to unit
+    variance, as ``route_batch`` draws them: it draws them at 0.02, where
+    every cross-attention score is near zero and its softmax near uniform
+    (the cross weights' gradients read about 1e-8 at full width)."""
+    batch = make_train_batch(cfg, B, S, gen)
+    if "patches" in batch:
+        batch["patches"].mul_(50.0)
+    return batch
+
+
+def smoke_step_parity(arch: str = LLAMA["arch"], head_dim: int = 0) -> dict:
+    """One train step at smoke(arch) size (its head dim set to ``head_dim``
+    where given), fp32 compute, pallas attention: on the card (kernels)
+    against the CPU (plain versions), from the same initial state and batch
+    (``train_batch``; a vlm's gates nonzero).  A moe config's routing
+    decisions are compared between the two sides (``route_flips``): a flip
+    at a tie (margin under ``ROUTE_TIE``) is reported, and the card's step
+    is run again on the CPU's decisions (``ForcedRoutes``) and held to the
+    gate; any other flip fails."""
+    cfg = smoke(get_config(arch))
+    if head_dim:
+        cfg = dataclasses.replace(cfg, head_dim=head_dim)
     flags = RunFlags(attn_impl="pallas", compute_dtype="float32")
     opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=3)
-    gen = torch.Generator(device="cpu").manual_seed(1)
-    cpu_state = make_train_state(cfg, gen)
-    gpu_state = tree_map(lambda t: t.detach().cuda().requires_grad_(
-        t.requires_grad), cpu_state)
-    before = tree_map(lambda t: t.detach().clone(), cpu_state["params"])
-    b = SyntheticLMDataset(cfg.vocab_size, 128, 2, seed=1).batch(0)
+    init = make_train_state(cfg, torch.Generator(device="cpu").manual_seed(1))
+    if cfg.family == "vlm":
+        with torch.no_grad():
+            vlm_gates(init["params"])
+    init = tree_map(lambda t: t.detach(), init)
+
+    def state_on(dev):
+        st = tree_map(lambda t: t.to(dev, copy=True), init)
+        st["params"] = tree_map(lambda t: t.requires_grad_(), st["params"])
+        return st
+
+    b = train_batch(cfg, 2, 128, torch.Generator().manual_seed(1))
+    step = make_train_step(cfg, flags, None, opt)
     out = {}
-    for name, st, dev in (("cpu", cpu_state, "cpu"), ("cuda", gpu_state, "cuda")):
-        batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
-        st, m = make_train_step(cfg, flags, None, opt)(st, batch)
-        out[name] = (st, {k: float(v) for k, v in m.items()})
-    (cs, cm), (gs, gm) = out["cpu"], out["cuda"]
+    for name in ("cpu", "cuda"):
+        batch = {k: v.to(name) for k, v in b.items()}
+        with RouterLog() as log:
+            st, m = step(state_on(name), batch)
+        out[name] = (st, {k: float(v) for k, v in m.items()}, log)
+    row = {"config": f"smoke({arch})", "head_dim": cfg.head_dim,
+           "seq_len": 128, "batch": 2}
+    if cfg.moe is not None:
+        flips = route_flips(out["cpu"][2], out["cuda"][2])
+        row["moe_routes"] = flips
+        if not flips["same_calls"] or flips["max_flip_margin"] > ROUTE_TIE:
+            fail(f"smoke step of {arch} on the card vs the CPU: routing "
+                 f"decisions differ off a tie {flips}")
+        if flips["flipped_tokens"]:
+            with ForcedRoutes(out["cpu"][2]):
+                st, m = step(state_on("cuda"),
+                             {k: v.cuda() for k, v in b.items()})
+            out["cuda"] = (st, {k: float(v) for k, v in m.items()}, None)
+            row["card_on_cpu_routes"] = True
+    (cs, cm, _), (gs, gm, _) = out["cpu"], out["cuda"]
     # AdamW's first update is lr * g / (|g| + eps) per element, which turns a
     # last-bit difference of a gradient near eps into a visible one: each
     # parameter whose gradient is above 100 * eps (the CPU's first moment is
     # (1 - b1) g) is held to 1e-3 * lr, the whole update to 1e-2 of its norm
     lr, sure_err, num, den = cm["lr"], 0.0, 0.0, 0.0
-    for p0, pc, pg, m in zip(leaves(before), leaves(cs["params"]),
+    for p0, pc, pg, m in zip(leaves(init["params"]), leaves(cs["params"]),
                              leaves(gs["params"]), leaves(cs["m"])):
         pc, pg = pc.detach(), pg.detach().cpu()
         sure = m.abs() / (1 - opt.b1) > 100 * opt.eps
@@ -2398,10 +2479,9 @@ def smoke_step_parity() -> dict:
             sure_err = max(sure_err, float((pg - pc).abs()[sure].max()))
         num += float(((pg - p0) - (pc - p0)).square().sum())
         den += float((pc - p0).square().sum())
-    row = {"config": "smoke(llama3.2-1b)", "seq_len": 128, "batch": 2,
-           "cpu": cm, "cuda": gm, "rtol": SMOKE_RTOL,
-           "params_max_abs_err_over_lr": sure_err / lr,
-           "update_rel_err": (num / den) ** 0.5}
+    row.update({"cpu": cm, "cuda": gm, "rtol": SMOKE_RTOL,
+                "params_max_abs_err_over_lr": sure_err / lr,
+                "update_rel_err": (num / den) ** 0.5})
     for key in ("loss", "grad_norm"):
         if abs(gm[key] - cm[key]) > SMOKE_RTOL * abs(cm[key]):
             fail(f"smoke step on the card vs the CPU: {row}")
@@ -2510,8 +2590,7 @@ def phase_train_llama(card: str) -> dict:
         t = time.perf_counter()
         state, step = trainer.train(state=state)
         train_s = time.perf_counter() - t
-        launches = {"flash_fwd": FAK.launches, "flash_dkdv": FAK.dkdv_launches,
-                    "flash_dq": FAK.dq_launches}
+        launches = attn_launches()
         peak = torch.cuda.max_memory_allocated()
         ck_files = [f for f in ckpt_dir.rglob("*") if f.is_file()]
         ck["bytes"] = sum(f.stat().st_size for f in ck_files)
@@ -2586,10 +2665,14 @@ SCAN_TWINS = {"wkv_scan": (wkv_ops, wkv_ops.wkv_scan_twin),
               "ssd_scan": (ssd_ops, ssd_ops.ssd_scan_twin)}
 
 
+def attn_launches() -> dict:
+    return {"flash_fwd": FAK.launches, "flash_dkdv": FAK.dkdv_launches,
+            "flash_dq": FAK.dq_launches}
+
+
 def ssm_launches() -> dict:
     return {"wkv_scan": WKVK.launches, "ssd_scan": SSDK.launches,
-            "flash_fwd": FAK.launches, "flash_dkdv": FAK.dkdv_launches,
-            "flash_dq": FAK.dq_launches}
+            **attn_launches()}
 
 
 def phase_train_ssm(card: str) -> dict:
@@ -2677,6 +2760,169 @@ def phase_train_ssm(card: str) -> dict:
               "step_metrics": {k: float(v) for k, v in m.items()},
               "max_memory_allocated": torch.cuda.max_memory_allocated()})
         del state, m, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+# ------------------------------------------------------------------ phase 8b
+# moe / vlm / audio training at full width, bf16 compute, pallas attention:
+# B2 / B3 / B4 at the shapes these models give them (phase 3's FA_MOE ..
+# FA_AUDIO and BWD_FAMILIES rows).  Depth cut so that the fp32 state
+# (parameters, gradients, m and v: 16 B a parameter) fits the card:
+# moonshot-v1-16b-a3b 4 of 48 layers (2.95 B parameters, 0.67 B of them
+# embedding and head), llama-3.2-vision-11b 5 of 40 (four self layers and
+# one cross layer: n_layers is a multiple of cross_attn_period); hubert-
+# xlarge keeps its 48.  Every layer of these families runs one attention.
+TRAIN_FAMILIES = {"moonshot-v1-16b-a3b": dict(n_layers=4, batch=1),
+                  "llama-3.2-vision-11b": dict(n_layers=5, batch=1),
+                  "hubert-xlarge": dict(n_layers=48, batch=2)}
+TRAIN_FAMILIES_SHAPE = dict(seq_len=1536, seed=0)
+FAMILY_PLAIN = "naive"           # the plain attention route of the check
+
+
+def family_routes(cfg, params, batch, flags) -> dict:
+    """One loss + backward on the pallas route and on the plain route, on
+    the same weights and batch: loss (with 0.01 aux), its parts, gradient
+    norm and launches; a vlm's smallest max |grad| over its cross
+    weights; a moe model's routing decisions of the two routes compared
+    (reported)."""
+    routes, logs = {}, {}
+    for impl in ("pallas", FAMILY_PLAIN):
+        before = attn_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with RouterLog() as logs[impl]:
+            loss, parts = make_loss_fn(cfg, dataclasses.replace(
+                flags, attn_impl=impl))(params, batch)
+            grads = torch.autograd.grad(loss, leaves(params))
+        gnorm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+        r = {"loss": float(loss.detach()),
+             "ce": float(parts["loss"].detach()),
+             "aux": float(parts["aux"].detach()), "grad_norm": float(gnorm),
+             "seconds": time.perf_counter() - t,
+             "launches": {k: v - before[k]
+                          for k, v in attn_launches().items()}}
+        if cfg.family == "vlm":
+            r["cross_w_min_max_abs_grad"] = min(
+                float(g.abs().max()) for (p, _), g in zip(paths(params), grads)
+                if p.startswith("blocks/cross/w"))
+        routes[impl] = r
+        del loss, grads, gnorm
+    if cfg.moe is not None:
+        routes["moe_routes_bf16"] = route_flips(logs["pallas"],
+                                                logs[FAMILY_PLAIN])
+    return routes
+
+
+def phase_train_families(card: str) -> dict:
+    """For each of moonshot-v1-16b-a3b, llama-3.2-vision-11b and
+    hubert-xlarge: (a) one fp32 train step at smoke width with the
+    family's own head dim, card against CPU (``smoke_step_parity``); (b)
+    at full width in bf16, one loss + backward on the pallas route against
+    the plain route (``LOSS_RTOL`` / ``GNORM_RTOL``; the vlm's gates
+    nonzero, its patches at unit scale and every cross weight's gradient
+    nonzero; moonshot's aux finite and above zero); (c) one
+    ``make_train_step`` step, timed, with
+    the attention kernels and AdamW split out, at least one B2, B3 and B4
+    launch an attention layer, and its peak memory."""
+    total = {k: 0 for k in attn_launches()}
+    dev = torch.device("cuda")
+    for arch, spec in TRAIN_FAMILIES.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        full = get_config(arch)
+        t0 = time.perf_counter()
+        parity = smoke_step_parity(arch, head_dim=full.head_dim)
+        parity_s = time.perf_counter() - t0
+
+        cfg = dataclasses.replace(full, n_layers=spec["n_layers"])
+        flags = RunFlags(attn_impl="pallas")
+        opt = AdamWConfig(lr=1e-3, warmup_steps=20, total_steps=1)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(TRAIN_FAMILIES_SHAPE["seed"])
+        t0 = time.perf_counter()
+        state = make_train_state(cfg, gen)
+        if cfg.family == "vlm":
+            with torch.no_grad():
+                vlm_gates(state["params"])
+        batch = train_batch(cfg, spec["batch"],
+                            TRAIN_FAMILIES_SHAPE["seq_len"], gen)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in leaves(state["params"]))
+        n_attn = cfg.n_layers
+
+        routes = family_routes(cfg, state["params"], batch, flags)
+        pl, nv = routes["pallas"], routes[FAMILY_PLAIN]
+        if not all(np.isfinite([r["loss"], r["aux"], r["grad_norm"]]).all()
+                   for r in (pl, nv)):
+            fail(f"train_families {arch}: non-finite loss, aux or gradient "
+                 f"norm {routes}")
+        if abs(pl["loss"] - nv["loss"]) > LOSS_RTOL * abs(nv["loss"]) or \
+                abs(pl["grad_norm"] - nv["grad_norm"]) > \
+                GNORM_RTOL * nv["grad_norm"]:
+            fail(f"train_families {arch}: pallas and {FAMILY_PLAIN} "
+                 f"attention disagree {routes}")
+        if cfg.family == "vlm" and not min(
+                r["cross_w_min_max_abs_grad"] for r in (pl, nv)) > 0:
+            fail(f"train_families {arch}: a cross weight has no gradient "
+                 f"{routes}")
+        if cfg.moe is not None and not min(pl["aux"], nv["aux"]) > 0:
+            fail(f"train_families {arch}: aux loss not above zero {routes}")
+        if min(pl["launches"].values()) < n_attn:
+            fail(f"train_families {arch}: the pallas route launched "
+                 f"{pl['launches']}, fewer than {n_attn} a kernel")
+
+        step_fn = make_train_step(cfg, flags, None, opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = attn_launches()
+        with EventTimer(FAK, ("flash_fwd", "flash_dkdv", "flash_dq")) as attn, \
+                EventTimer(steps_lib, ("adamw_update",)) as optim:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            state, m = step_fn(state, batch)
+            e1.record()
+            attn_ms, optim_ms = attn.ms(), optim.ms()["adamw_update"]
+        step = {k: v - before[k] for k, v in attn_launches().items()}
+        step_ms = e0.elapsed_time(e1)
+        peak = torch.cuda.max_memory_allocated()
+        if min(step.values()) < n_attn:
+            fail(f"train_families {arch}: the step launched {step}, fewer "
+                 f"than one B2 / B3 / B4 in each of {n_attn} attention "
+                 f"layers")
+        if not np.isfinite(float(m["loss"])):
+            fail(f"train_families {arch}: non-finite loss in the step {m}")
+        for k in total:
+            total[k] += step[k]
+        emit({"phase": "train_families", "card": card, "arch": arch,
+              "config": {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                         "n_heads": cfg.n_heads,
+                         "n_kv_heads": cfg.n_kv_heads,
+                         "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+                         "vocab_size": cfg.vocab_size, "params": n_params,
+                         **({"n_experts": cfg.moe.n_experts,
+                             "top_k": cfg.moe.top_k} if cfg.moe else {}),
+                         **({"n_media_tokens": cfg.n_media_tokens}
+                            if cfg.family == "vlm" else {})},
+              "reduced": ([f"n_layers {full.n_layers} -> {cfg.n_layers}"]
+                          if cfg.n_layers != full.n_layers else []),
+              "batch": spec["batch"], **TRAIN_FAMILIES_SHAPE,
+              "flags": dataclasses.asdict(flags),
+              "smoke_step_parity": parity, "smoke_step_parity_s": parity_s,
+              "init_s": init_s, "routes": routes,
+              "tol": {"smoke_rtol": SMOKE_RTOL, "loss_rtol": LOSS_RTOL,
+                      "grad_norm_rtol": GNORM_RTOL},
+              "step_ms": step_ms, "attention_kernels_ms": attn_ms,
+              "attention_share": sum(attn_ms.values()) / step_ms,
+              "optimizer_ms": optim_ms,
+              "rest_ms": step_ms - sum(attn_ms.values()) - optim_ms,
+              "step_launches": step, "attention_layers": n_attn,
+              "step_metrics": {k: float(v) for k, v in m.items()},
+              "max_memory_allocated": peak})
+        del state, m, step_fn, batch
     gc.collect()
     torch.cuda.empty_cache()
     return total
@@ -2858,16 +3104,19 @@ class RouterLog:
 
     def __init__(self):
         self.calls = []
+        self.raw = []            # each call's top-k experts in route's order
 
     def __enter__(self):
         self.orig = moe_lib.route
 
         def route(router_w, x, k):
             idx, w, aux = self.orig(router_w, x, k)
-            probs = torch.softmax(x.float() @ router_w.float(), dim=-1)
-            top = probs.topk(k + 1, dim=-1).values
+            with torch.no_grad():
+                probs = torch.softmax(x.float() @ router_w.float(), dim=-1)
+                top = probs.topk(k + 1, dim=-1).values
             self.calls.append((idx.sort(dim=-1).values,
                                top[:, k - 1] - top[:, k]))
+            self.raw.append(idx)
             return idx, w, aux
         moe_lib.route = route
         return self
@@ -2878,19 +3127,51 @@ class RouterLog:
 
 def route_flips(a: RouterLog, b: RouterLog) -> dict:
     """Tokens whose expert sets differ between two runs of one prefill,
-    the largest probability margin among them, and the smallest margin of
-    any decision of the first run."""
-    flips, margin, least = 0, 0.0, float("inf")
+    the largest probability margin among them (and the first 32 margins,
+    in call order), and the smallest margin of any decision of the first
+    run."""
+    flips, margin, least, each = 0, 0.0, float("inf"), []
     for (ia, ma), (ib, _) in zip(a.calls, b.calls):
+        # the two runs may be on two devices (card and CPU)
+        ia, ma, ib = ia.cpu(), ma.cpu(), ib.cpu()
         diff = (ia != ib).any(dim=-1)
         flips += int(diff.sum())
         least = min(least, float(ma.min()))
         if diff.any():
             margin = max(margin, float(ma[diff].max()))
+            each += ma[diff].tolist()[:32 - len(each)]
     return {"decisions": sum(int(i.shape[0]) for i, _ in a.calls),
             "calls": len(a.calls), "same_calls": len(a.calls) == len(b.calls),
             "flipped_tokens": flips, "max_flip_margin": margin,
-            "min_margin": least}
+            "flip_margins": each, "min_margin": least}
+
+
+class ForcedRoutes:
+    """While active, each moe routing call takes its top-k experts from the
+    same call of a recorded run (a ``RouterLog``), in route's order; the
+    combine weights are this run's router probabilities of those experts,
+    normalised as ``moe.route`` normalises them, and the aux loss is
+    counted on them."""
+
+    def __init__(self, log: RouterLog):
+        self.raw = log.raw
+
+    def __enter__(self):
+        self.orig, calls = moe_lib.route, iter(self.raw)
+
+        def route(router_w, x, k):
+            probs = torch.softmax(x.float() @ router_w.float(), dim=-1)
+            idx = next(calls).to(x.device)
+            w = probs.gather(-1, idx)
+            w = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9)
+            E = probs.shape[-1]
+            frac = F.one_hot(idx[:, 0], E).float().mean(dim=0)
+            return idx, w, E * (frac * probs.mean(dim=0)).sum()
+        moe_lib.route = route
+        return self
+
+    def __exit__(self, *exc):
+        moe_lib.route = self.orig
 
 
 class KernelChecks:
@@ -3401,9 +3682,7 @@ def sharded_train(card: str) -> dict:
         torch.cuda.synchronize()
         runs[name] = {
             "train_s": time.perf_counter() - t, "leaf_types": sorted(kinds),
-            "launches": {"flash_fwd": FAK.launches,
-                         "flash_dkdv": FAK.dkdv_launches,
-                         "flash_dq": FAK.dq_launches},
+            "launches": attn_launches(),
             "loss": [r["loss"] for r in tr.metrics_log],
             "grad_norm": [r["grad_norm"] for r in tr.metrics_log],
             "step_ms": [r["step_time"] * 1e3 for r in tr.metrics_log]}
@@ -4435,6 +4714,7 @@ def main() -> int:
     drivers = phase_drivers(card)
     train = phase_train_llama(card)
     ssm = phase_train_ssm(card)
+    fam = phase_train_families(card)
     rwkv = phase_serve(card, "rwkv6-7b")
     zamba = phase_serve(card, "zamba2-2.7b")
     cluster = phase_cluster(card)
@@ -4448,7 +4728,8 @@ def main() -> int:
             replay_launches < 1 or profile_launches < 1 or \
             campaign_launches < 1 or min(drivers.values()) < 1 or \
             min(train.values()) < 1 or \
-            min(ssm.values()) < 1 or min(rwkv.values()) < 1 or \
+            min(ssm.values()) < 1 or min(fam.values()) < 1 or \
+            min(rwkv.values()) < 1 or \
             min(zamba.values()) < 1 or min(cluster.values()) < 1 or \
             min(audio.values()) < 1 or min(vlm.values()) < 1 or \
             min(moe.values()) < 1 or min(sharded.values()) < 1:
@@ -4457,7 +4738,8 @@ def main() -> int:
              f"sweep={sweep} replay={replay_launches} "
              f"profile={profile_launches} campaign={campaign_launches} "
              f"drivers={drivers} "
-             f"train={train} train_ssm={ssm} serve_rwkv6={rwkv} "
+             f"train={train} train_ssm={ssm} train_families={fam} "
+             f"serve_rwkv6={rwkv} "
              f"serve_zamba2={zamba} cluster={cluster} "
              f"encode_audio={audio} serve_vlm={vlm} serve_moe={moe} "
              f"sharded={sharded}")
@@ -4496,6 +4778,7 @@ def main() -> int:
                       "drivers": drivers["flash_fwd"],
                       "train_llama": train["flash_fwd"],
                       "train_ssm": ssm["flash_fwd"],
+                      "train_families": fam["flash_fwd"],
                       "serve_zamba2": zamba["flash_fwd"],
                       "cluster": cluster["flash_fwd"],
                       "encode_audio": audio["flash_fwd"],
@@ -4510,6 +4793,9 @@ def main() -> int:
                       "serve_moe": fa_rows[FA_MOE],
                       "serve_vlm": [fa_rows[FA_VLM], fa_rows[FA_CROSS]],
                       "encode_audio": fa_rows[FA_AUDIO],
+                      "train_families": [fa_rows[i] for i in
+                                         (FA_MOE, FA_VLM, FA_CROSS,
+                                          FA_AUDIO)],
                       "sharded": fa_rows[FA_LOCAL]}),
         kernel_entry("flash_dkdv", [src + "flash_bwd.cu",
                                     src + "flash_dkdv_sm90.cuh",
@@ -4518,7 +4804,10 @@ def main() -> int:
                      dkdv_rows[BWD_MAIN], dkdv_rows,
                      {"train_llama": train["flash_dkdv"],
                       "train_ssm": ssm["flash_dkdv"],
-                      "sharded": sharded["flash_dkdv"]}),
+                      "train_families": fam["flash_dkdv"],
+                      "sharded": sharded["flash_dkdv"]},
+                     {"train_families": [dkdv_rows[i]
+                                         for i in BWD_FAMILIES]}),
         kernel_entry("flash_dq", [src + "flash_bwd.cu",
                                   src + "flash_dq_sm90.cuh",
                                   src + "sm90.cuh"],
@@ -4526,7 +4815,9 @@ def main() -> int:
                      dq_rows[BWD_MAIN], dq_rows,
                      {"train_llama": train["flash_dq"],
                       "train_ssm": ssm["flash_dq"],
-                      "sharded": sharded["flash_dq"]}),
+                      "train_families": fam["flash_dq"],
+                      "sharded": sharded["flash_dq"]},
+                     {"train_families": [dq_rows[i] for i in BWD_FAMILIES]}),
         kernel_entry("ssd_scan", src + "ssd_scan.cu",
                      ref + "mamba2_scan/kernel.py:84",
                      ssd_rows[SSD_MAIN], ssd_rows,

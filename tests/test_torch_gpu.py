@@ -254,6 +254,47 @@ def test_flash_bwd_kernels_on_card(card, B, H, KH, S, D, causal, window, dt):
         assert float((got - auto).abs().max()) < tol
 
 
+@pytest.mark.parametrize("B,H,KH,Sq,Skv,D,causal,bq,bk", [
+    (1, 16, 16, 1536, 1536, 128, True, 512, 512),     # moonshot-v1-16b-a3b
+    (1, 32, 8, 1536, 1536, 128, True, 512, 512),      # the vlm's self attn
+    (1, 32, 8, 1536, 1600, 128, False, 512, 400),     # its cross attention
+    (2, 16, 16, 1536, 1536, 80, False, 512, 512),     # hubert-xlarge
+    (1, 4, 2, 96, 40, 128, False, 32, 40),            # Skv < Sq, ragged
+])
+def test_flash_bwd_bf16_on_the_moe_vlm_audio_shapes(card, B, H, KH, Sq, Skv,
+                                                    D, causal, bq, bk):
+    """The bf16 dk/dv and dq tensor-core bodies at the shapes training the
+    moe, vlm and audio families gives them (the forward test's rows): head
+    dim 128 with G = 1 and G = 4, non-causal with Sq != Skv (kv lengths no
+    multiple of dk/dv's 128-row kv tile), head dim 80 non-causal.  dq, dk
+    and dv within 5e-4 * max(1, max|plain|) of the plain versions and of
+    autograd through the oracle, on the same upcast inputs."""
+    rng = np.random.default_rng(Sq + Skv + D + 1)
+    mk = lambda h, n: torch.from_numpy(rng.normal(size=(B, h, n, D)).astype(
+        np.float32)).to(card, torch.bfloat16)
+    q, k, v, dout = mk(H, Sq), mk(KH, Skv), mk(KH, Skv), mk(H, Sq)
+    kw = dict(causal=causal, window=0, bq=bq, bk=bk)
+    _, lse = K.flash_fwd(q, k, v, **kw)
+    qf, kf, vf = (t.float().requires_grad_() for t in (q, k, v))
+    o = R.attention_ref(qf, kf, vf, causal=causal)
+    delta = (dout.float() * o.detach()).sum(-1)
+    b_dkdv, b_dq = K.dkdv_launches, K.dq_launches
+    dk, dv = K.flash_dkdv(q, k, v, dout, lse, delta, **kw)
+    dq = K.flash_dq(q, k, v, dout, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert (K.dkdv_launches, K.dq_launches) == (b_dkdv + 1, b_dq + 1)
+    assert dk.shape == dv.shape == k.shape and dq.shape == q.shape
+    p_dk, p_dv = K.flash_dkdv_plain(q, k, v, dout, lse, delta, **kw)
+    p_dq = K.flash_dq_plain(q, k, v, dout, lse, delta, **kw)
+    a_dq, a_dk, a_dv = torch.autograd.grad(o, (qf, kf, vf), dout.float())
+    for got, plain, auto in ((dq, p_dq, a_dq), (dk, p_dk, a_dk),
+                             (dv, p_dv, a_dv)):
+        assert torch.isfinite(got).all()
+        tol = 5e-4 * max(1.0, float(plain.abs().max()))
+        assert float((got - plain).abs().max()) < tol
+        assert float((got - auto).abs().max()) < tol
+
+
 def test_bf16_dq_counts_one_launch_per_call(card):
     """The bf16 dq route adds one to ``dq_launches`` per call and nothing to
     the other counts."""
